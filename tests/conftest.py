@@ -46,6 +46,10 @@ def pytest_configure(config):
         "slow: excluded from tier-1 (`-m 'not slow'`); wide sweeps and "
         "long soak tests",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (ray_tpu_torch kernels); skips without one",
+    )
 
 
 def cpu_backend_lacks_multiprocess_collectives() -> bool:
