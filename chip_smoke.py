@@ -8,7 +8,8 @@ line:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
 2. build: nvcc builds the flash-attention kernels from ops/csrc (time and
-   -Xptxas -v output).
+   -Xptxas -v output), then each bf16 kernel's registers, shared memory and
+   blocks per SM at the main head width, as the card's runtime reports them.
 3. kernels vs plain: each kernel against its plain PyTorch version on the same
    inputs, bf16 and f32 at the main path's shapes plus edge cases, with the
    port's own bars (ops/attention.py MATCH_TOL); the forward without LSE
@@ -16,8 +17,10 @@ line:
 4. main path: the flagship transformer at full width (bench.py's TPU config,
    ~168M params, random weights from a seed) trains on one fixed batch through
    init_params / adamw / make_train_step; the loss must be finite and fall and
-   every kernel must have been launched 8 times per step. Then two steps with
-   the config's defaults (fused loss, remat).
+   every kernel must have been launched 8 times per step. Three more steps
+   run under torch.profiler: each flash kernel's device time per step and the
+   device-busy share of a step. Then two steps with the config's defaults
+   (fused loss, remat).
 5. timings: each kernel, its plain version and one PyTorch library call for
    the same function, with CUDA events, beside the card's bound.
 
@@ -38,6 +41,21 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 MAIN = dict(B=12, T=1024, H=8, D=128)  # attention shapes of the main path
 STEPS = 10  # timed train steps, after one warm-up step
+PROFILED = 3  # further steps under torch.profiler, after the timed ones
+KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# Which design each kernel's numbers belong to, so a row that keeps an
+# earlier time can be told apart.
+DESIGNS = {"flash_fwd": "mma.sync-cp.async", "flash_bwd_dkv": "mma.sync-cp.async", "flash_bwd_dq": "wmma-smem"}
+# Kinds of device work in a train step, by words in the kernel's name (the
+# first group that matches; "other" for none).
+PROFILE_GROUPS = (
+    ("flash attention", ("rtt::",)),
+    ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("softmax", ("SoftMax", "softmax")),
+    ("optimizer", ("multi_tensor", "Adam", "adam")),
+    ("copy/cast", ("copy",)),
+    ("elementwise/reduce", ("elementwise", "reduce")),
+)
 
 
 def _phase(name):
@@ -70,6 +88,12 @@ def build_phase():
     print(f"built {k.path} in {k.seconds:.1f} s" if k.seconds else f"cached {k.path}")
     for line in k.log.splitlines():
         print("  " + line.strip())
+    info = {name: k.info(name, MAIN["D"]) for name in KERNELS}
+    for name, i in info.items():
+        print(f"{name} bf16 D{MAIN['D']}: {i['regs']} registers/thread, {i['smem_bytes']} B shared memory/block, "
+              f"{i['threads']} threads/block, {i['blocks_per_sm']} block(s)/SM "
+              f"({i['blocks_per_sm'] * i['threads'] // 32} warps), {i['local_bytes']} B local/thread")
+    return info
 
 
 def _inputs(torch, seed, dtype, B, Tq, Tk, H, D):
@@ -93,6 +117,9 @@ def kernels_phase(torch):
         ("ragged1000", "f32", 2, 1000, 1000, 8, 128, True, 0),
         ("d64", "bf16", 2, 1024, 1024, 8, 64, True, 0),
         ("d32-window", "bf16", 2, 512, 512, 4, 32, True, 100),
+        # more ragged lengths, and Tq < Tk with a bottom-right offset (832) that is no multiple of 128
+        ("ragged960", "bf16", 2, 960, 960, 8, 128, True, 0),
+        ("tq192<tk", "bf16", 2, 192, 1024, 8, 128, True, 0),
     ]
     main_err, failures = {}, []
     for i, (name, dt, B, Tq, Tk, H, D, causal, window) in enumerate(cases):
@@ -124,8 +151,44 @@ def kernels_phase(torch):
     return main_err
 
 
-def _train(torch, tt, A, cfg, steps, batch_size, label):
-    """Warm-up step + `steps` steps on one fixed batch; returns (losses, step ms, launch counts)."""
+def _profile(run, steps, layers):
+    """`steps` more train steps under torch.profiler. Prints each flash
+    kernel's device time per step and the busiest device kernels; returns
+    (device ms per step of every kernel, {flash kernel: ms per step}), or None
+    when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+    # Device work only: kernels, copies and sets, not the annotations of
+    # CPU ranges on the device's timeline (the optimizer step's, for one).
+    us = {e.key: e.self_device_time_total for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)}
+    total_ms = sum(us.values()) / 1e3 / steps
+    if total_ms <= 0:
+        print("in-step: not measured (the profiler recorded no device time)")
+        return None
+    flash = {n: sum(t for key, t in us.items() if n in key) / 1e3 / steps for n in KERNELS}
+    for n, ms in flash.items():
+        print(f"in-step {n}: {ms:.3f} ms per step, {ms / layers:.4f} ms per launch")
+    groups = {}
+    for key, t in us.items():
+        group = next((g for g, words in PROFILE_GROUPS if any(w in key for w in words)), "other")
+        groups[group] = groups.get(group, 0.0) + t / 1e3 / steps
+    print(f"in-step device time: {total_ms:.1f} ms per step; by kind: "
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+    print("busiest:")
+    for key, t in sorted(us.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {t / 1e3 / steps:8.3f} ms  {key[:110]}")
+    return total_ms, flash
+
+
+def _train(torch, tt, A, cfg, steps, batch_size, label, profiled=0):
+    """Warm-up step + `steps` timed steps + `profiled` steps under the
+    profiler, on one fixed batch; returns (losses, step ms, launch counts,
+    peak memory, profile)."""
     params = tt.init_params(cfg, seed=0)
     opt = tt.adamw(params)
     step = tt.make_train_step(cfg, opt)
@@ -140,6 +203,9 @@ def _train(torch, tt, A, cfg, steps, batch_size, label):
         loss = step(params, batch).item()  # .item() waits for the step
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
+    prof = None
+    if profiled:
+        prof = _profile(lambda: losses.append(step(params, batch).item()), profiled, cfg.n_layers)
     counts = A.launch_counts()  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     print(f"{label}: {tt.num_params(params) / 1e6:.1f}M params, losses {[round(x, 4) for x in losses]}")
@@ -149,7 +215,7 @@ def _train(torch, tt, A, cfg, steps, batch_size, label):
         raise AssertionError(f"{label}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: loss did not fall ({losses[0]} -> {losses[-1]})")
-    return losses, ms[1:], counts, peak
+    return losses, ms[1:], counts, peak, prof
 
 
 def main_path_phase(torch, card):
@@ -165,18 +231,21 @@ def main_path_phase(torch, card):
         fused_loss=False, scan_unroll=8,
     )
     B, L = MAIN["B"], cfg.n_layers
-    _, ms, counts, peak = _train(torch, tt, A, cfg, STEPS, B, "bench config")
-    want = {n: (1 + STEPS) * L for n in counts}
-    print(f"launches over {1 + STEPS} steps: {counts} (expected {want})")
+    _, ms, counts, peak, prof = _train(torch, tt, A, cfg, STEPS, B, "bench config", profiled=PROFILED)
+    n_steps = 1 + STEPS + PROFILED
+    want = {n: n_steps * L for n in counts}
+    print(f"launches over {n_steps} steps: {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"main path did not launch every kernel {L}x per step: {counts}")
     med = sorted(ms)[len(ms) // 2]
     print(f"bench config on {card}: step {med:.1f} ms median of {STEPS} "
           f"(min {min(ms):.1f}, max {max(ms):.1f}), {B * MAIN['T'] / med * 1e3:.0f} tokens/s, "
           f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    if prof is not None:
+        print(f"device-busy share of the median step: {prof[0] / med:.1%} ({prof[0]:.1f} ms of kernels)")
 
     cfg2 = dataclasses.replace(cfg, fused_loss=True, remat=True)
-    _, ms2, counts2, peak2 = _train(torch, tt, A, cfg2, 1, B, "defaults (fused loss, remat)")
+    _, ms2, counts2, peak2, _ = _train(torch, tt, A, cfg2, 1, B, "defaults (fused loss, remat)")
     # remat recomputes each layer's forward in the backward: 2 forward launches per layer.
     want2 = {"flash_fwd": 2 * 2 * L, "flash_bwd_dkv": 2 * L, "flash_bwd_dq": 2 * L}
     print(f"launches over 2 steps: {counts2} (expected {want2})")
@@ -184,7 +253,8 @@ def main_path_phase(torch, card):
         raise AssertionError(f"defaults run launched {counts2}, expected {want2}")
     print(f"defaults on {card}: step {ms2[-1]:.1f} ms, {B * MAIN['T'] / ms2[-1] * 1e3:.0f} tokens/s, "
           f"max_memory_allocated {peak2 / 2**30:.2f} GiB")
-    return counts
+    # in-step ms per launch of each flash kernel (empty when not measured)
+    return counts, ({n: t / L for n, t in prof[1].items()} if prof else {})
 
 
 def _time_ms(torch, fn, iters):
@@ -199,7 +269,7 @@ def _time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def timings_phase(torch, card, counts, errs):
+def timings_phase(torch, card, counts, errs, info, in_step):
     _phase("timings")
     watts = float(card.rsplit(",", 1)[1].strip().split()[0])  # "name, 700.00 W"
     import torch.nn.functional as F
@@ -254,11 +324,15 @@ def timings_phase(torch, card, counts, errs):
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         ms, plain_ms, lib_ms = measured[name]
         row = {
-            "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
+            "name": name, "route": "cuda", "design": DESIGNS[name], "source": sources[name][0],
+            "replaces": sources[name][1],
             "launches": counts[name], "max_abs_err": max(m["max_abs"] for m in errs[name]),
             "rel_l2_err": max(m["rel_l2"] for m in errs[name]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_ms, "plain_covers": covers[name][0], "library_covers": covers[name][1],
+            "in_step_ms": in_step.get(name),
+            "regs": info[name]["regs"], "smem_bytes": info[name]["smem_bytes"],
+            "blocks_per_sm": info[name]["blocks_per_sm"],
         }
         rows_out.append(row)
         print(f"{name}: {ms:.3f} ms (bound {row['bound_ms']:.4f} ms by {row['bound_by']}: "
@@ -278,10 +352,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 1
     smi, card = device_phase(torch)
-    build_phase()
+    info = build_phase()
     errs = kernels_phase(torch)
-    counts = main_path_phase(torch, smi)
-    kernels = timings_phase(torch, smi, counts, errs)
+    counts, in_step = main_path_phase(torch, smi)
+    kernels = timings_phase(torch, smi, counts, errs, info, in_step)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

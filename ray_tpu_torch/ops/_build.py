@@ -36,8 +36,10 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# Entry points: pointers and the stream as c_void_p (a plain int would be cut
-# to 32 bits), ints as c_int. Each returns a cudaError_t.
+# Every extern "C" function of csrc/*.cu (tests/test_torch_build.py holds this
+# table to the sources): pointers and the stream as c_void_p (a plain int
+# would be cut to 32 bits), ints as c_int. Each returns a cudaError_t, except
+# where _RESTYPES says otherwise.
 _SIGNATURES = {
     # q, k, v, out, lse | is_bf16, B, H, Tq, Tk, D | scale | causal, window | stream
     "rtt_flash_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
@@ -45,7 +47,13 @@ _SIGNATURES = {
     "rtt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
     # q, k, v, dout, lse, delta, dq | ...
     "rtt_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
+    # D, info[5]: registers, shared memory, blocks per SM, threads, local bytes
+    "rtt_flash_fwd_info": [_I, _P],
+    # kernel (0 dK/dV, 1 dQ), D, info[5]
+    "rtt_flash_bwd_info": [_I, _I, _P],
+    "rtt_error_string": [_I],
 }
+_RESTYPES = {"rtt_error_string": ctypes.c_char_p}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +68,19 @@ class Kernels:
         if code != 0:
             msg = self.lib.rtt_error_string(code).decode()
             raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+    def info(self, kernel: str, D: int) -> dict[str, int]:
+        """Resources of a bf16 kernel ("flash_fwd", "flash_bwd_dkv" or
+        "flash_bwd_dq") at head width D on the current device: registers per
+        thread, shared memory per block, blocks per SM, threads per block and
+        local (spilled) bytes per thread."""
+        out = (ctypes.c_int * 5)()
+        if kernel == "flash_fwd":
+            code = self.lib.rtt_flash_fwd_info(D, out)
+        else:
+            code = self.lib.rtt_flash_bwd_info(("flash_bwd_dkv", "flash_bwd_dq").index(kernel), D, out)
+        self.check(code, f"{kernel} info")
+        return dict(zip(("regs", "smem_bytes", "blocks_per_sm", "threads", "local_bytes"), out))
 
 
 def _digest(csrc: Path) -> str:
@@ -108,6 +129,21 @@ def _compile(csrc: Path, out: Path) -> str:
     return "\n".join(logs)
 
 
+def edited_copy(dst: Path, edits=()) -> Path:
+    """Copy the kernel sources into `dst` (made if missing), applying `edits`:
+    (file, old, new) replacements, each `old` found exactly once in its
+    file. Returns `dst`, ready for build_and_load."""
+    dst.mkdir(parents=True, exist_ok=True)
+    texts = {src.name: src.read_text() for src in CSRC.iterdir() if src.suffix in (".cu", ".cuh")}
+    for file, old, new in edits:
+        if texts[file].count(old) != 1:
+            raise RuntimeError(f"{old!r} is not in {file} exactly once")
+        texts[file] = texts[file].replace(old, new)
+    for name, text in texts.items():
+        (dst / name).write_text(text)
+    return dst
+
+
 @functools.cache
 def load_kernels() -> Kernels:
     """Build (if the sources changed) and load the kernel library."""
@@ -131,7 +167,5 @@ def build_and_load(csrc: Path, build_dir: Path) -> Kernels:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.rtt_error_string.argtypes = [ctypes.c_int]
-    lib.rtt_error_string.restype = ctypes.c_char_p
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return Kernels(lib=lib, path=lib_path, log=log, seconds=seconds)

@@ -10,17 +10,45 @@
 // it; the dQ kernel owns a query tile and loops over the key tiles it sees.
 // Each output element is written by exactly one block with no atomics, so
 // the results are deterministic. The loop bounds are the TPU kernels'
-// causal/sliding-window bounds; ragged tails are masked in the kernel.
+// causal/sliding-window bounds; ragged tails are masked in the kernel. P and
+// dS are rounded to the input type before their products, as on the TPU; all
+// sums are f32.
 //
 // What bounds them on this card: at the training shapes (T 1024, D 128,
 // causal, bf16) dK/dV does ~340 FLOP and dQ ~307 FLOP per byte it must move,
 // above the H100's ~295 FLOP/byte balance point, so at the roofline both are
-// bound by the tensor cores. This first version reaches neither roof: its
-// WMMA products go through shared memory (scores, P, dS and the f32
-// accumulators all live there), and the dK/dV block's ~180 KB of shared
-// memory leaves one block of four warps per SM. P and dS are rounded to the
-// input type before their products, as on the TPU; all sums are f32.
-#include "flash_common.cuh"
+// bound by the tensor cores; a tile kernel is held first by how fast its
+// warps feed them (shared-memory operand reads, exp, barriers per tile).
+//
+// dK/dV in bf16 (flash_bwd_dkv_bf16_kernel; the main path), on mma.sync:
+// - One block of 4 warps per (64-key tile, batch*head). Its K and V tiles
+//   stay in shared memory; warp w owns keys [16w, 16w+16) and holds their dK
+//   and dV accumulators in registers (m16n8 f32 fragments, flash_sm90.cuh).
+// - Query tiles of 64 rows, with their dO rows, lse and Delta, stream
+//   through a two-stage cp.async ring: tile j+1 is in flight while tile j is
+//   used, behind one barrier per tile.
+// - Per query tile: S^T = K Q^T and dP^T = V dO^T into registers; P^T and
+//   dS^T computed there; then dV += P^T dO and dK += dS^T Q with P^T and
+//   dS^T as register A operands (C fragments rounded to bf16) and dO, Q read
+//   transposed from shared memory by ldmatrix.trans.
+// - The diagonal split: each warp classifies a query tile against its own
+//   16 keys (sm90::tile_mode): no mask below the diagonal, inside the window
+//   and inside Tq; visible() only on tiles that cross the diagonal, the
+//   window's edge or the ragged tail; no work on tiles that see none of its
+//   keys.
+// - Longest first: blockIdx.y is the key tile, so key tile 0, which every
+//   causal query tile sees, starts first.
+// - Occupancy at D 128: the two f32 accumulators (64 registers each) and
+//   S^T, dP^T (32 each) fill the 255-register cap, with a few words spilled;
+//   at 128 threads and ~97 KB of shared memory two blocks (8 warps) fit on
+//   an SM. A block of 8 warps over 128 keys fits once per SM and reads
+//   slower on the card (ops/tune_kernels.py; PERF.md).
+//
+// dK/dV in f32, and dQ: the first version's kernels (flash_bwd_dkv_kernel,
+// flash_bwd_dq_kernel): WMMA (bf16) or scalar FMA (f32) products on tiles,
+// scores and accumulators all in shared memory. f32 keeps that path because
+// no tensor-core path on this card computes full f32.
+#include "flash_sm90.cuh"
 
 namespace rtt {
 
@@ -184,7 +212,8 @@ __global__ void __launch_bounds__(tile_rows<E>() / kStrip * 32)
   store_strip<E, D>(dq + q_head, dQacc + qw * D, q0 + qw, Tq, stride);
 }
 
-template <typename E, int D>
+// The first version's kernels: dK/dV (f32 only) when DKV, else dQ.
+template <typename E, int D, bool DKV>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                        const float* delta, void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
                        int causal, int window, cudaStream_t stream) {
@@ -192,7 +221,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   constexpr int threads = TILE / kStrip * 32;
   const E *qe = static_cast<const E*>(q), *ke = static_cast<const E*>(k), *ve = static_cast<const E*>(v);
   const E* de = static_cast<const E*>(dout);
-  if (dk != nullptr) {
+  if constexpr (DKV) {
     constexpr size_t smem = dkv_smem_bytes<E, D>();
     auto kernel = flash_bwd_dkv_kernel<E, D>;
     cudaError_t err = allow_smem(kernel, smem);
@@ -210,18 +239,167 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <typename E>
+template <typename E, bool DKV>
 cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                          const float* delta, void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
                          int causal, int window, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_bwd<E, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
-    case 64: return launch_bwd<E, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
-    case 128: return launch_bwd<E, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 32:
+      return launch_bwd<E, 32, DKV>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 64:
+      return launch_bwd<E, 64, DKV>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 128:
+      return launch_bwd<E, 128, DKV>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+namespace sm90 {
+
+constexpr int kDkvBK = 64;  // keys per block: 4 warps of 16
+constexpr int kDkvBQ = 64;  // query rows per ring stage
+constexpr int kDkvThreads = kDkvBK / 16 * 32;
+
+template <int D>
+constexpr size_t dkv_bf16_smem_bytes() {
+  // K, V; a two-stage ring of Q, dO, lse and Delta.
+  return sizeof(bf16) * (2 * kDkvBK * D + 2 * 2 * kDkvBQ * D) + sizeof(float) * 2 * 2 * kDkvBQ;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads)
+    flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout, const float* __restrict__ lse,
+                              const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                              int Tq, int Tk, float scale, int causal, int window) {
+  constexpr int BQ = kDkvBQ, BK = kDkvBK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BK, D]
+  bf16* Vs = Ks + BK * D;                    // [BK, D]
+  bf16* Qs = Vs + BK * D;                    // [2][BQ, D]
+  bf16* dOs = Qs + 2 * BQ * D;               // [2][BQ, D]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * D);  // [2][BQ] lse
+  float* Ds = Ls + 2 * BQ;                                 // [2][BQ] Delta
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BK;  // key tile 0 (the longest causal work) first
+  const int stride = H * D;
+  const int offset = Tk - Tq;
+  const bf16* qh = q + ((size_t)b * Tq * H + h) * D;
+  const bf16* doh = dout + ((size_t)b * Tq * H + h) * D;
+  const float* lseh = lse + (size_t)bh * Tq;
+  const float* deltah = delta + (size_t)bh * Tq;
+  const size_t k_head = ((size_t)b * Tk * H + h) * D;
+
+  // Query tiles that can see this key tile: from the first row whose causal
+  // horizon reaches k0 to the last row whose window still holds the tile's
+  // last key.
+  const int nqt = (Tq + BQ - 1) / BQ;
+  int qt_begin = 0, qt_end = nqt;
+  if (causal) {
+    const int first_row = k0 - offset;
+    qt_begin = first_row <= 0 ? 0 : min(first_row / BQ, nqt);
+    if (window > 0) {
+      const int last_row = min(k0 + BK, Tk) - 1 + window - 1 - offset;
+      qt_end = last_row < 0 ? 0 : min(nqt, last_row / BQ + 1);
+      qt_end = max(qt_end, qt_begin);
+    }
+  }
+
+  auto load_stage = [&](int qt, int stage) {
+    load_tile_async<BQ, D, kDkvThreads>(Qs + stage * BQ * D, qh, qt * BQ, Tq, stride);
+    load_tile_async<BQ, D, kDkvThreads>(dOs + stage * BQ * D, doh, qt * BQ, Tq, stride);
+    load_rows_async<BQ>(Ls + stage * BQ, lseh, qt * BQ, Tq);
+    load_rows_async<BQ>(Ds + stage * BQ, deltah, qt * BQ, Tq);
+  };
+  load_tile_async<BK, D, kDkvThreads>(Ks, k + k_head, k0, Tk, stride);
+  load_tile_async<BK, D, kDkvThreads>(Vs, v + k_head, k0, Tk, stride);
+  if (qt_begin < qt_end) load_stage(qt_begin, 0);
+  cp_async_commit();
+
+  const int kr0 = k0 + warp * 16;  // this warp's first key ...
+  const int kr_last = min(kr0 + 15, Tk - 1);  // ... and its last real one
+  const float sl2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+#pragma unroll 1
+  for (int qt = qt_begin; qt < qt_end; ++qt) {
+    const int stage = (qt - qt_begin) & 1;
+    cp_async_wait<0>();  // this thread's copies of query tile qt (and K, V) have landed ...
+    __syncthreads();     // ... every thread's have, and every warp is done with tile qt - 1
+    if (qt + 1 < qt_end) load_stage(qt + 1, stage ^ 1);  // so qt + 1 fills qt - 1's stage while qt is used
+    cp_async_commit();
+
+    const int q0 = qt * BQ;
+    const bool ragged = q0 + BQ > Tq;  // padding rows past Tq are masked
+    int mode = kr0 >= Tk ? kSkip : tile_mode(q0 + offset, q0 + BQ - 1 + offset, kr0, kr_last, ragged, causal, window);
+    if (mode == kSkip) continue;  // no query of this tile sees the warp's keys
+
+    const bf16* Qt = Qs + stage * BQ * D;
+    const bf16* dOt = dOs + stage * BQ * D;
+    float s[BQ / 8][4], dp[BQ / 8][4];
+    mm_abt<D, BQ>(s, Ks, warp * 16, Qt, 0);    // S^T = K Q^T
+    mm_abt<D, BQ>(dp, Vs, warp * 16, dOt, 0);  // dP^T = V dO^T
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const int col = n * 8 + 2 * t;  // query (in the tile) of elements e = 0 and 2; e = 1, 3: col + 1
+      const float2 lse2 = *reinterpret_cast<const float2*>(Ls + stage * BQ + col);
+      const float2 del2 = *reinterpret_cast<const float2*>(Ds + stage * BQ + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(s[n][e] * sl2 - (e & 1 ? lse2.y : lse2.x) * 1.4426950408889634f);
+        if (mode == kMasked) {  // only tiles across the diagonal, the window's edge or Tq
+          const int qrow = q0 + col + (e & 1);
+          if (!(qrow < Tq && visible(qrow + offset, kr0 + g + (e >> 1) * 8, Tk, causal, window))) p = 0.f;
+        }
+        s[n][e] = p;                                                     // P^T
+        dp[n][e] = p * (dp[n][e] - (e & 1 ? del2.y : del2.x)) * scale;  // dS^T
+      }
+    }
+    mm_pb<D, BQ>(dv_acc, s, dOt, 0);  // dV += P^T dO
+    mm_pb<D, BQ>(dk_acc, dp, Qt, 0);  // dK += dS^T Q
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // K's and V's rows are free to stage the outputs
+
+  // Warp w read only its own 16 rows of K and V: they stage its dK and dV.
+  store_acc<D>(dk + k_head, dk_acc, 1.f, 1.f, Ks + warp * 16 * D, kr0, Tk, stride);
+  store_acc<D>(dv + k_head, dv_acc, 1.f, 1.f, Vs + warp * 16 * D, kr0, Tk, stride);
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                            const float* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
+                            int causal, int window, cudaStream_t stream) {
+  constexpr size_t smem = dkv_bf16_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_bf16_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, (Tk + kDkvBK - 1) / kDkvBK), kDkvThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq, Tk, scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dkv_bf16(int D, const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                              const float* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
+                              int causal, int window, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_dkv_bf16<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 64: return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 128: return launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace sm90
 }  // namespace rtt
 
 // q, dout: [B, Tq, H, D]; k, v: [B, Tk, H, D]; all contiguous, 16-byte aligned,
@@ -232,10 +410,9 @@ extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                                  int D, float scale, int causal, int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *l = static_cast<const float*>(lse), *d = static_cast<const float*>(delta);
-  return is_bf16 ? rtt::dispatch_bwd<__nv_bfloat16>(D, q, k, v, dout, l, d, nullptr, dk, dv, B, H, Tq, Tk, scale,
-                                                    causal, window, s)
-                 : rtt::dispatch_bwd<float>(D, q, k, v, dout, l, d, nullptr, dk, dv, B, H, Tq, Tk, scale, causal,
-                                            window, s);
+  return is_bf16 ? rtt::sm90::dispatch_dkv_bf16(D, q, k, v, dout, l, d, dk, dv, B, H, Tq, Tk, scale, causal, window, s)
+                 : rtt::dispatch_bwd<float, true>(D, q, k, v, dout, l, d, nullptr, dk, dv, B, H, Tq, Tk, scale,
+                                                  causal, window, s);
 }
 
 // As rtt_flash_bwd_dkv, writing dq ([B, Tq, H, D]).
@@ -244,8 +421,26 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v, con
                                 float scale, int causal, int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *l = static_cast<const float*>(lse), *d = static_cast<const float*>(delta);
-  return is_bf16 ? rtt::dispatch_bwd<__nv_bfloat16>(D, q, k, v, dout, l, d, dq, nullptr, nullptr, B, H, Tq, Tk,
-                                                    scale, causal, window, s)
-                 : rtt::dispatch_bwd<float>(D, q, k, v, dout, l, d, dq, nullptr, nullptr, B, H, Tq, Tk, scale,
-                                            causal, window, s);
+  return is_bf16 ? rtt::dispatch_bwd<__nv_bfloat16, false>(D, q, k, v, dout, l, d, dq, nullptr, nullptr, B, H, Tq,
+                                                           Tk, scale, causal, window, s)
+                 : rtt::dispatch_bwd<float, false>(D, q, k, v, dout, l, d, dq, nullptr, nullptr, B, H, Tq, Tk, scale,
+                                                   causal, window, s);
+}
+
+// A bf16 backward kernel's resources at head width D (kernel 0: dK/dV,
+// 1: dQ), on the current device; info as for rtt_flash_fwd_info.
+extern "C" int rtt_flash_bwd_info(int kernel, int D, int* info) {
+  using namespace rtt;
+  using bf16 = __nv_bfloat16;
+  constexpr int dkv_threads = sm90::kDkvThreads, dq_threads = tile_rows<bf16>() / kStrip * 32;
+  switch (kernel * 1000 + D) {
+    case 32: return kernel_info(sm90::flash_bwd_dkv_bf16_kernel<32>, sm90::dkv_bf16_smem_bytes<32>(), dkv_threads, info);
+    case 64: return kernel_info(sm90::flash_bwd_dkv_bf16_kernel<64>, sm90::dkv_bf16_smem_bytes<64>(), dkv_threads, info);
+    case 128:
+      return kernel_info(sm90::flash_bwd_dkv_bf16_kernel<128>, sm90::dkv_bf16_smem_bytes<128>(), dkv_threads, info);
+    case 1032: return kernel_info(flash_bwd_dq_kernel<bf16, 32>, dq_smem_bytes<bf16, 32>(), dq_threads, info);
+    case 1064: return kernel_info(flash_bwd_dq_kernel<bf16, 64>, dq_smem_bytes<bf16, 64>(), dq_threads, info);
+    case 1128: return kernel_info(flash_bwd_dq_kernel<bf16, 128>, dq_smem_bytes<bf16, 128>(), dq_threads, info);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -158,4 +158,24 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// What `kernel` takes on the current device, launched with `threads` threads
+// and `smem` bytes of dynamic shared memory: info = {registers per thread,
+// shared memory per block, blocks that fit on one SM, threads per block,
+// local memory per thread (spills)}. Returns a cudaError_t.
+template <typename Kernel>
+inline int kernel_info(Kernel kernel, size_t smem, int threads, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = (int)(attr.sharedSizeBytes + smem);
+  info[2] = blocks;
+  info[3] = threads;
+  info[4] = (int)attr.localSizeBytes;
+  return cudaSuccess;
+}
+
 }  // namespace rtt

@@ -23,7 +23,6 @@ import concurrent.futures
 import json
 import subprocess
 import sys
-from pathlib import Path
 from unittest import mock
 
 import torch
@@ -31,25 +30,30 @@ import torch
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as A
 
-# name: (file, sound text, faulty text, case, kernels it breaks)
+# name: (file, sound text, faulty text, case, kernels it breaks). Each sound
+# text occurs once in its file (tests/test_torch_plant_faults.py).
 FAULTS = {
-    # The last query tiles skip their second key tile: 64 of their ~1000 keys.
+    # The query tiles from row 512 on skip their second key tile: 64 of their
+    # ~600-1000 keys.
     "fwd_skip_key_tile": (
-        "flash_fwd.cu", "const int k0 = kt * BK;\n",
-        "const int k0 = kt * BK;\n    if (kt == kt_begin + 1 && blockIdx.x >= 8) continue;\n",
+        "flash_fwd.cu",
+        "int mode = tile_mode(qp_lo, qp_lo + 15, k0, k0 + BK - 1, k0 + BK > Tk, causal, window);\n",
+        "int mode = tile_mode(qp_lo, qp_lo + 15, k0, k0 + BK - 1, k0 + BK > Tk, causal, window);\n"
+        "    if (kt == kt_begin + 1 && q0 >= 512) mode = kSkip;\n",
         "main", ("flash_fwd",)),
-    # The running accumulator is not rescaled when a row's max rises.
+    # The register accumulator is not rescaled when a row's max rises.
     "fwd_no_rescale": (
-        "flash_fwd.cu", "(j + lane) % (D / 2)] *= corr;", "(j + lane) % (D / 2)] *= 1.f;",
+        "flash_fwd.cu", "o[n][e] *= corr[e >> 1];", "o[n][e] *= 1.f;",
         "main", ("flash_fwd",)),
     "dq_skip_key_tile": (
         "flash_bwd.cu", "const int k0 = kt * BK;\n",
         "const int k0 = kt * BK;\n    if (kt == kt_begin + 1 && blockIdx.x >= 8) continue;\n",
         "main", ("flash_bwd_dq",)),
-    # Each key tile skips the second query tile that sees it.
+    # Every warp of each key tile skips the second query tile that sees it.
     "dkv_skip_query_tile": (
-        "flash_bwd.cu", "const int q0 = qt * BQ;\n",
-        "const int q0 = qt * BQ;\n    if (qt == qt_begin + 1) continue;\n",
+        "flash_bwd.cu",
+        "kr_last, ragged, causal, window);\n",
+        "kr_last, ragged, causal, window);\n    if (qt == qt_begin + 1) mode = kSkip;\n",
         "main", ("flash_bwd_dkv",)),
     # Each row sees one key more than its window: (i - window, i] becomes [i - window, i].
     "window_off_by_one": (
@@ -61,21 +65,6 @@ CASES = {  # name: (B, T, H, D, causal, window)
     "window256": (2, 1024, 8, 128, True, 256),
 }
 OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_bwd_dkv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
-
-
-def _faulty_copy(name: str, file: str, old: str, new: str) -> Path:
-    dst = _build.BUILD_DIR / "faults" / name / "csrc"
-    dst.mkdir(parents=True, exist_ok=True)
-    for src in _build.CSRC.iterdir():
-        if src.suffix not in (".cu", ".cuh"):
-            continue
-        text = src.read_text()
-        if src.name == file:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: {old!r} is not in {file} exactly once")
-            text = text.replace(old, new)
-        (dst / src.name).write_text(text)
-    return dst
 
 
 def _case(name: str, seed: int):
@@ -110,7 +99,8 @@ def main() -> int:
     print(f"bars (bf16): {A.MATCH_TOL[torch.bfloat16]}")
 
     builds = {"sound": _build.load_kernels()}
-    copies = {name: _faulty_copy(name, *spec[:3]) for name, spec in FAULTS.items()}
+    copies = {name: _build.edited_copy(_build.BUILD_DIR / "faults" / name / "csrc", [spec[:3]])
+              for name, spec in FAULTS.items()}
     with concurrent.futures.ThreadPoolExecutor(len(copies)) as pool:
         futures = {name: pool.submit(_build.build_and_load, csrc, csrc.parent) for name, csrc in copies.items()}
         builds.update((name, f.result()) for name, f in futures.items())
