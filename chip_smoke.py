@@ -13,14 +13,16 @@ line:
 3. kernels vs plain: each kernel against its plain PyTorch version on the same
    inputs, bf16 and f32 at the main path's shapes plus edge cases, with the
    port's own bars (ops/attention.py MATCH_TOL); the forward without LSE
-   (the no-grad path) must give the same output as with it.
+   (the no-grad path) must give the same output as with it, and a second
+   backward on the same inputs the same dq, dk and dv bit for bit (no
+   atomics).
 4. main path: the flagship transformer at full width (bench.py's TPU config,
    ~168M params, random weights from a seed) trains on one fixed batch through
    init_params / adamw / make_train_step; the loss must be finite and fall and
    every kernel must have been launched 8 times per step. Three more steps
    run under torch.profiler: each flash kernel's device time per step and the
-   device-busy share of a step. Then two steps with the config's defaults
-   (fused loss, remat).
+   device-busy share of a step. Then the config's defaults (fused loss,
+   remat): a warm-up step, three timed steps and one profiled step.
 5. timings: each kernel, its plain version and one PyTorch library call for
    the same function, with CUDA events, beside the card's bound.
 
@@ -45,7 +47,8 @@ PROFILED = 3  # further steps under torch.profiler, after the timed ones
 KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # Which design each kernel's numbers belong to, so a row that keeps an
 # earlier time can be told apart.
-DESIGNS = {"flash_fwd": "mma.sync-cp.async", "flash_bwd_dkv": "mma.sync-cp.async", "flash_bwd_dq": "wmma-smem"}
+DESIGNS = {"flash_fwd": "mma.sync-cp.async", "flash_bwd_dkv": "mma.sync-cp.async",
+           "flash_bwd_dq": "mma.sync-cp.async"}
 # Kinds of device work in a train step, by words in the kernel's name (the
 # first group that matches; "other" for none).
 PROFILE_GROUPS = (
@@ -130,9 +133,12 @@ def kernels_phase(torch):
         out, lse = A.flash_fwd_cuda(q, k, v, causal, scale, window, save_lse=True)
         out_primal, _ = A.flash_fwd_cuda(q, k, v, causal, scale, window, save_lse=False)
         dq, dk, dv = A.flash_bwd_cuda(q, k, v, out_ref, lse_ref, dout, causal, scale, window)
+        again = A.flash_bwd_cuda(q, k, v, out_ref, lse_ref, dout, causal, scale, window)
         torch.cuda.synchronize()
         if not torch.equal(out_primal, out):
             failures.append(f"{name}/{dt}: the forward without LSE differs from the forward with it")
+        failures += [f"{name}/{dt}: a second backward gives another {w}"
+                     for w, x, y in zip(("dq", "dk", "dv"), (dq, dk, dv), again) if not torch.equal(x, y)]
         m = {}
         for what, got, want in (("out", out, out_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
                                 ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
@@ -144,14 +150,14 @@ def kernels_phase(torch):
         if (name, dt) == ("main", "bf16"):
             main_err = {"flash_fwd": (m["out"], m["lse"]), "flash_bwd_dkv": (m["dk"], m["dv"]),
                         "flash_bwd_dq": (m["dq"],)}
-        del q, k, v, dout, out_ref, lse_ref, dq_ref, dk_ref, dv_ref, out, out_primal, lse, dq, dk, dv
+        del q, k, v, dout, out_ref, lse_ref, dq_ref, dk_ref, dv_ref, out, out_primal, lse, dq, dk, dv, again
     if failures:
         raise AssertionError("kernel disagrees with its plain version: " + "; ".join(failures))
     print(f"all {len(cases)} cases within the bars {A.MATCH_TOL}")
     return main_err
 
 
-def _profile(run, steps, layers):
+def _profile(run, steps, launches):
     """`steps` more train steps under torch.profiler. Prints each flash
     kernel's device time per step and the busiest device kernels; returns
     (device ms per step of every kernel, {flash kernel: ms per step}), or None
@@ -172,7 +178,7 @@ def _profile(run, steps, layers):
         return None
     flash = {n: sum(t for key, t in us.items() if n in key) / 1e3 / steps for n in KERNELS}
     for n, ms in flash.items():
-        print(f"in-step {n}: {ms:.3f} ms per step, {ms / layers:.4f} ms per launch")
+        print(f"in-step {n}: {ms:.3f} ms per step, {ms / launches[n]:.4f} ms per launch")
     groups = {}
     for key, t in us.items():
         group = next((g for g, words in PROFILE_GROUPS if any(w in key for w in words)), "other")
@@ -205,7 +211,9 @@ def _train(torch, tt, A, cfg, steps, batch_size, label, profiled=0):
         losses.append(loss)
     prof = None
     if profiled:
-        prof = _profile(lambda: losses.append(step(params, batch).item()), profiled, cfg.n_layers)
+        # remat recomputes each layer's forward in the backward: 2 forward launches per layer.
+        launches = {n: cfg.n_layers * (2 if n == "flash_fwd" and cfg.remat else 1) for n in KERNELS}
+        prof = _profile(lambda: losses.append(step(params, batch).item()), profiled, launches)
     counts = A.launch_counts()  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     print(f"{label}: {tt.num_params(params) / 1e6:.1f}M params, losses {[round(x, 4) for x in losses]}")
@@ -245,14 +253,18 @@ def main_path_phase(torch, card):
         print(f"device-busy share of the median step: {prof[0] / med:.1%} ({prof[0]:.1f} ms of kernels)")
 
     cfg2 = dataclasses.replace(cfg, fused_loss=True, remat=True)
-    _, ms2, counts2, peak2, _ = _train(torch, tt, A, cfg2, 1, B, "defaults (fused loss, remat)")
+    _, ms2, counts2, peak2, prof2 = _train(torch, tt, A, cfg2, 3, B, "defaults (fused loss, remat)", profiled=1)
+    n2 = 1 + 3 + 1
     # remat recomputes each layer's forward in the backward: 2 forward launches per layer.
-    want2 = {"flash_fwd": 2 * 2 * L, "flash_bwd_dkv": 2 * L, "flash_bwd_dq": 2 * L}
-    print(f"launches over 2 steps: {counts2} (expected {want2})")
+    want2 = {"flash_fwd": n2 * 2 * L, "flash_bwd_dkv": n2 * L, "flash_bwd_dq": n2 * L}
+    print(f"launches over {n2} steps: {counts2} (expected {want2})")
     if counts2 != want2:
         raise AssertionError(f"defaults run launched {counts2}, expected {want2}")
-    print(f"defaults on {card}: step {ms2[-1]:.1f} ms, {B * MAIN['T'] / ms2[-1] * 1e3:.0f} tokens/s, "
-          f"max_memory_allocated {peak2 / 2**30:.2f} GiB")
+    med2 = sorted(ms2)[1]
+    print(f"defaults on {card}: step {med2:.1f} ms median of 3 (min {min(ms2):.1f}, max {max(ms2):.1f}), "
+          f"{B * MAIN['T'] / med2 * 1e3:.0f} tokens/s, max_memory_allocated {peak2 / 2**30:.2f} GiB")
+    if prof2 is not None:
+        print(f"defaults: device-busy share of the median step: {prof2[0] / med2:.1%} ({prof2[0]:.1f} ms of kernels)")
     # in-step ms per launch of each flash kernel (empty when not measured)
     return counts, ({n: t / L for n, t in prof[1].items()} if prof else {})
 

@@ -56,35 +56,36 @@
 
 namespace rtt {
 
-template <typename E, int D>
+template <int D>
 constexpr size_t fwd_smem_bytes() {
-  constexpr int BQ = tile_rows<E>(), BK = tile_rows<E>();
-  return sizeof(E) * (BQ * D + 2 * BK * D + BQ * BK) + sizeof(float) * (BQ * BK + BQ * D);
+  constexpr int BQ = kF32Tile, BK = kF32Tile;
+  return sizeof(float) * (2 * BQ * D + 2 * BK * D + 2 * BQ * BK);
 }
 
-template <typename E, int D>
-__global__ void __launch_bounds__(tile_rows<E>() / kStrip * 32)
-    flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v, E* __restrict__ out,
-                     float* __restrict__ lse, int H, int Tq, int Tk, float scale, int causal, int window) {
-  constexpr int BQ = tile_rows<E>(), BK = tile_rows<E>();
+template <int D>
+__global__ void __launch_bounds__(kF32Tile / kStrip * 32)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk, float scale, int causal,
+                     int window) {
+  constexpr int BQ = kF32Tile, BK = kF32Tile;
   extern __shared__ __align__(128) unsigned char smem[];
-  E* Qs = reinterpret_cast<E*>(smem);                // [BQ, D]
-  E* Ks = Qs + BQ * D;                               // [BK, D]
-  E* Vs = Ks + BK * D;                               // [BK, D]
-  E* Ps = Vs + BK * D;                               // [BQ, BK]  P in the input type
-  float* Ss = reinterpret_cast<float*>(Ps + BQ * BK);  // [BQ, BK]  scores
-  float* Acc = Ss + BQ * BK;                         // [BQ, D]   unnormalised output
+  float* Qs = reinterpret_cast<float*>(smem);  // [BQ, D]
+  float* Ks = Qs + BQ * D;                     // [BK, D]
+  float* Vs = Ks + BK * D;                     // [BK, D]
+  float* Ps = Vs + BK * D;                     // [BQ, BK]  P
+  float* Ss = Ps + BQ * BK;                    // [BQ, BK]  scores
+  float* Acc = Ss + BQ * BK;                   // [BQ, D]   unnormalised output
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int stride = H * D;
   const int offset = Tk - Tq;  // bottom-right causal alignment
-  const E* qh = q + ((size_t)b * Tq * H + h) * D;
-  const E* kh = k + ((size_t)b * Tk * H + h) * D;
-  const E* vh = v + ((size_t)b * Tk * H + h) * D;
+  const float* qh = q + ((size_t)b * Tq * H + h) * D;
+  const float* kh = k + ((size_t)b * Tk * H + h) * D;
+  const float* vh = v + ((size_t)b * Tk * H + h) * D;
 
-  load_tile<E, D>(Qs, qh, q0, BQ, Tq, stride);
+  load_tile<D>(Qs, qh, q0, BQ, Tq, stride);
   for (int i = threadIdx.x; i < BQ * D; i += blockDim.x) Acc[i] = 0.f;
   __syncthreads();
 
@@ -95,8 +96,8 @@ __global__ void __launch_bounds__(tile_rows<E>() / kStrip * 32)
   // and each handles half of the row's columns.
   const int r = lane >> 1, half = lane & 1;
   const int qpos = q0 + warp * kStrip + r + offset;
-  const E* Qw = Qs + warp * kStrip * D;
-  E* Pw = Ps + warp * kStrip * BK;
+  const float* Qw = Qs + warp * kStrip * D;
+  float* Pw = Ps + warp * kStrip * BK;
   float* Sw = Ss + warp * kStrip * BK;
   float* Aw = Acc + warp * kStrip * D;
   float m = -INFINITY, l = 0.f;
@@ -104,11 +105,11 @@ __global__ void __launch_bounds__(tile_rows<E>() / kStrip * 32)
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<E, D>(Ks, kh, k0, BK, Tk, stride);
-    load_tile<E, D>(Vs, vh, k0, BK, Tk, stride);
+    load_tile<D>(Ks, kh, k0, BK, Tk, stride);
+    load_tile<D>(Vs, vh, k0, BK, Tk, stride);
     __syncthreads();
 
-    warp_mm<E, true, BK, D>(Qw, D, Ks, D, Sw, BK, false);  // S = Q K^T
+    warp_mm<true, BK, D>(Qw, D, Ks, D, Sw, BK, false);  // S = Q K^T
 
     // Online softmax over this tile. Column j + lane (mod BK/2) spreads the
     // 32 lanes over 32 banks.
@@ -132,7 +133,7 @@ __global__ void __launch_bounds__(tile_rows<E>() / kStrip * 32)
       const int c = half * (BK / 2) + (j + lane) % (BK / 2);
       const float p = expf(s[j] - safe_m);
       p_sum += p;
-      Pw[r * BK + c] = from_float<E>(p);
+      Pw[r * BK + c] = p;
     }
     p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 1);
     l = l * corr + p_sum;
@@ -140,42 +141,41 @@ __global__ void __launch_bounds__(tile_rows<E>() / kStrip * 32)
     for (int j = 0; j < D / 2; ++j) Aw[r * D + half * (D / 2) + (j + lane) % (D / 2)] *= corr;
     __syncwarp();
 
-    warp_mm<E, false, D, BK>(Pw, BK, Vs, D, Aw, D, true);  // Acc += P V
+    warp_mm<false, D, BK>(Pw, BK, Vs, D, Aw, D, true);  // Acc += P V
   }
 
   const int row = q0 + warp * kStrip + r;
   if (row < Tq) {
-    E* orow = out + ((size_t)(b * Tq + row) * H + h) * D;
+    float* orow = out + ((size_t)(b * Tq + row) * H + h) * D;
     for (int j = 0; j < D / 2; ++j) {
       const int d = half * (D / 2) + j;
-      orow[d] = from_float<E>(l > 0.f ? Aw[r * D + d] / l : 0.f);
+      orow[d] = l > 0.f ? Aw[r * D + d] / l : 0.f;
     }
     if (lse != nullptr && half == 0) lse[(size_t)bh * Tq + row] = m + logf(l);  // -inf when l == 0
   }
 }
 
-template <typename E, int D>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H, int Tq,
                        int Tk, float scale, int causal, int window, cudaStream_t stream) {
-  constexpr int BQ = tile_rows<E>();
-  constexpr size_t smem = fwd_smem_bytes<E, D>();
-  auto kernel = flash_fwd_kernel<E, D>;
+  constexpr int BQ = kF32Tile;
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  kernel<<<grid, BQ / kStrip * 32, smem, stream>>>(static_cast<const E*>(q), static_cast<const E*>(k),
-                                                   static_cast<const E*>(v), static_cast<E*>(out),
+  kernel<<<grid, BQ / kStrip * 32, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                                   static_cast<const float*>(v), static_cast<float*>(out),
                                                    static_cast<float*>(lse), H, Tq, Tk, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <typename E>
 cudaError_t dispatch_fwd(int D, const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
                          int Tq, int Tk, float scale, int causal, int window, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch_fwd<E, 32>(q, k, v, out, lse, B, H, Tq, Tk, scale, causal, window, stream);
-    case 64: return launch_fwd<E, 64>(q, k, v, out, lse, B, H, Tq, Tk, scale, causal, window, stream);
-    case 128: return launch_fwd<E, 128>(q, k, v, out, lse, B, H, Tq, Tk, scale, causal, window, stream);
+    case 32: return launch_fwd<32>(q, k, v, out, lse, B, H, Tq, Tk, scale, causal, window, stream);
+    case 64: return launch_fwd<64>(q, k, v, out, lse, B, H, Tq, Tk, scale, causal, window, stream);
+    case 128: return launch_fwd<128>(q, k, v, out, lse, B, H, Tq, Tk, scale, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -354,7 +354,7 @@ extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v, void* 
                              int H, int Tq, int Tk, int D, float scale, int causal, int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? rtt::sm90::dispatch_fwd_bf16(D, q, k, v, out, lse, B, H, Tq, Tk, scale, causal, window, s)
-                 : rtt::dispatch_fwd<float>(D, q, k, v, out, lse, B, H, Tq, Tk, scale, causal, window, s);
+                 : rtt::dispatch_fwd(D, q, k, v, out, lse, B, H, Tq, Tk, scale, causal, window, s);
 }
 
 // The bf16 forward kernel's resources at head width D, on the current device:

@@ -1,5 +1,5 @@
 // Register-resident building blocks of the bf16 flash-attention kernels
-// (the forward in flash_fwd.cu, dK/dV in flash_bwd.cu).
+// (the forward in flash_fwd.cu, dK/dV and dQ in flash_bwd.cu).
 //
 // Products are mma.sync.m16n8k16 (bf16 in, f32 accumulate) on fragments in
 // registers, with operands read from shared memory by ldmatrix. Tiles reach
@@ -17,11 +17,13 @@
 //   B (16 x 8):             b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
 //   C (16 x 8, f32):        c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
 // So the C fragments of two neighbouring n-tiles, rounded to bf16 pairs, are
-// exactly the A fragment of one k-chunk (pack_a): P and dS^T go from one
-// product into the next without leaving registers. Each row of a C fragment
-// lives in the 4 lanes of one quad, so a row max or sum is two
+// exactly the A fragment of one k-chunk (pack_a): P, P^T, dS and dS^T go
+// from one product into the next without leaving registers. Each row of a C
+// fragment lives in the 4 lanes of one quad, so a row max or sum is two
 // __shfl_xor_sync steps (quad_max, quad_sum).
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "flash_common.cuh"
 #include "ptx_sm90.cuh"
@@ -102,7 +104,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // acc[n][.] = A[16, D] * B[N, D]^T for one warp: A is rows [a_row, a_row + 16)
 // of a swizzled [*, D] tile, B rows [b_row, b_row + N) of another (a_row and
 // b_row multiples of 16). The k dimension is D. (S = Q K^T in the forward;
-// S^T = K Q^T and dP^T = V dO^T in dK/dV.)
+// S^T = K Q^T and dP^T = V dO^T in dK/dV; S = Q K^T and dP = dO V^T in dQ.)
 template <int D, int N>
 __device__ __forceinline__ void mm_abt(float (&acc)[N / 8][4], const bf16* A, int a_row, const bf16* B, int b_row) {
   const int lane = threadIdx.x & 31;
@@ -128,7 +130,7 @@ __device__ __forceinline__ void mm_abt(float (&acc)[N / 8][4], const bf16* A, in
 // fragments of K/8 n-tiles (rounded to bf16 here), B is rows
 // [b_row, b_row + K) of a swizzled [*, D] tile (b_row a multiple of 16), read
 // transposed by ldmatrix. (O += P V in the forward; dV += P^T dO and
-// dK += dS^T Q in dK/dV.)
+// dK += dS^T Q in dK/dV; dQ += dS K in dQ.)
 template <int D, int K>
 __device__ __forceinline__ void mm_pb(float (&acc)[D / 8][4], const float (&p)[K / 8][4], const bf16* B, int b_row) {
   const int lane = threadIdx.x & 31;
@@ -177,7 +179,8 @@ __device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 8][4
 // shifted by Tk - Tq) against keys [k_lo, k_hi]: kSkip when no pair is
 // visible, kFull when every pair is (no mask is evaluated: the diagonal split
 // of the TPU kernel), kMasked otherwise, and always when the tile holds
-// padding (`ragged`: keys past Tk in the forward, queries past Tq in dK/dV).
+// padding (`ragged`: keys past Tk in the forward and dQ, queries past Tq in
+// dK/dV).
 __device__ __forceinline__ int tile_mode(int qp_lo, int qp_hi, int k_lo, int k_hi, bool ragged, int causal,
                                          int window) {
   if (!causal) return ragged ? kMasked : kFull;

@@ -45,9 +45,11 @@ FAULTS = {
     "fwd_no_rescale": (
         "flash_fwd.cu", "o[n][e] *= corr[e >> 1];", "o[n][e] *= 1.f;",
         "main", ("flash_fwd",)),
+    # The query tiles from row 512 on skip their second key tile in dQ.
     "dq_skip_key_tile": (
-        "flash_bwd.cu", "const int k0 = kt * BK;\n",
-        "const int k0 = kt * BK;\n    if (kt == kt_begin + 1 && blockIdx.x >= 8) continue;\n",
+        "flash_bwd.cu",
+        "k0 + BK - 1, k0 + BK > Tk, causal, window);\n",
+        "k0 + BK - 1, k0 + BK > Tk, causal, window);\n    if (kt == kt_begin + 1 && q0 >= 512) mode = kSkip;\n",
         "main", ("flash_bwd_dq",)),
     # Every warp of each key tile skips the second query tile that sees it.
     "dkv_skip_query_tile": (

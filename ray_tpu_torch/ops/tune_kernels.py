@@ -1,13 +1,13 @@
-"""Time design variants of the bf16 forward and dK/dV kernels on one card.
+"""Time design variants of the bf16 forward, dK/dV and dQ kernels on one card.
 
     python -m ray_tpu_torch.ops.tune_kernels
 
 Needs one CUDA card and nvcc. Each variant is a few text edits of a copy of
 ``ops/csrc`` (written under ``ray_tpu_torch/_build/variants/``, never into
-``csrc``); the copies build in parallel. Every build's forward and dK/dV
-kernels are held against the plain versions (``attention.MATCH_TOL``) and
-timed with CUDA events at the main path's shapes (bf16, B 12, T 1024, H 8,
-D 128, causal), in two rounds that take the builds in turn, so that they are
+``csrc``); the copies build in parallel. Every build's three kernels are
+held against the plain versions (``attention.MATCH_TOL``) and timed with
+CUDA events at the main path's shapes (bf16, B 12, T 1024, H 8, D 128,
+causal), in two rounds that take the builds in turn, so that they are
 compared within one call on one card.
 
 Prints each build's registers, shared memory and blocks per SM, a line per
@@ -45,7 +45,16 @@ VARIANTS = {
     "dkv 128-key tiles": (
         "dK/dV with 128-key blocks of 8 warps (one block per SM)",
         [("flash_bwd.cu", "constexpr int kDkvBK = 64;", "constexpr int kDkvBK = 128;")]),
+    "dq no 2-block bound": (
+        "dQ without __launch_bounds__' two blocks per SM",
+        [("flash_bwd.cu", "__launch_bounds__(kDqThreads, 2)", "__launch_bounds__(kDqThreads)")]),
+    "dq 128-row tiles": (
+        "dQ with 128-row query tiles of 8 warps, so each K/V tile is read by twice the rows (one block per SM: "
+        "Q, dO and the K/V ring take 128 KB)",
+        [("flash_bwd.cu", "constexpr int kDqBQ = 64;", "constexpr int kDqBQ = 128;"),
+         ("flash_bwd.cu", "__launch_bounds__(kDqThreads, 2)", "__launch_bounds__(kDqThreads)")]),
 }
+KERNELS = {"flash_fwd": "forward", "flash_bwd_dkv": "dK/dV", "flash_bwd_dq": "dQ"}
 B, T, H, D = 12, 1024, 8, 128
 ROUNDS, ITERS = 2, 30
 
@@ -74,7 +83,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(copies)) as pool:
         futures = {name: pool.submit(_build.build_and_load, csrc, csrc.parent) for name, csrc in copies.items()}
         builds = {name: f.result() for name, f in futures.items()}
-    info = {name: {kern: k.info(kern, D) for kern in ("flash_fwd", "flash_bwd_dkv")} for name, k in builds.items()}
+    info = {name: {kern: k.info(kern, D) for kern in KERNELS} for name, k in builds.items()}
     for name, i in info.items():
         print(f"{name:>18}: {VARIANTS[name][0]}\n{'':>20}" + "; ".join(
             f"{kern} {x['regs']} registers, {x['smem_bytes']} B shared, {x['blocks_per_sm']} block(s) of "
@@ -84,25 +93,29 @@ def main() -> int:
     q, k, v, dout = (torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
     scale = D**-0.5
     out_ref, lse_ref = A._plain_flash_fwd(q, k, v, True, scale, 0)
-    _, dk_ref, dv_ref = A._plain_flash_bwd(q, k, v, out_ref, lse_ref, dout, True, scale, 0)
+    dq_ref, dk_ref, dv_ref = A._plain_flash_bwd(q, k, v, out_ref, lse_ref, dout, True, scale, 0)
     delta = (dout.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
-    times, wrong = {name: {"flash_fwd": [], "flash_bwd_dkv": []} for name in builds}, []
+    calls = {  # kernel: (launch, names of its outputs)
+        "flash_fwd": (lambda: A.flash_fwd_cuda(q, k, v, True, scale, 0, save_lse=True), ("out", "lse")),
+        "flash_bwd_dkv": (lambda: A.flash_bwd_dkv_cuda(q, k, v, dout, lse_ref, delta, True, scale, 0), ("dk", "dv")),
+        "flash_bwd_dq": (lambda: (A.flash_bwd_dq_cuda(q, k, v, dout, lse_ref, delta, True, scale, 0),), ("dq",)),
+    }
+    want = {"out": out_ref, "lse": lse_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref}
+    times, wrong = {name: {kern: [] for kern in KERNELS} for name in builds}, []
     for rnd in range(ROUNDS):
         for name, kernels in builds.items():
+            over = []
             with mock.patch.object(_build, "load_kernels", lambda: kernels):  # the wrappers launch from this build
-                fwd = lambda: A.flash_fwd_cuda(q, k, v, True, scale, 0, save_lse=True)
-                dkv = lambda: A.flash_bwd_dkv_cuda(q, k, v, dout, lse_ref, delta, True, scale, 0)
-                out, lse = fwd()
-                dk, dv = dkv()
-                got = {"out": (out, out_ref), "lse": (lse, lse_ref), "dk": (dk, dk_ref), "dv": (dv, dv_ref)}
-                over = [f"{o}: {x}" for o, (a, b) in got.items() if (x := A.over_tolerance(A.mismatch(a, b), q.dtype))]
-                times[name]["flash_fwd"].append(_time_ms(fwd))
-                times[name]["flash_bwd_dkv"].append(_time_ms(dkv))
+                for kern, (launch, outs) in calls.items():
+                    for o, got in zip(outs, launch()):
+                        if x := A.over_tolerance(A.mismatch(got, want[o]), q.dtype):
+                            over.append(f"{o}: {x}")
+                    times[name][kern].append(_time_ms(launch))
             if over and rnd == 0:
                 wrong.append(f"{name}: {over}")
-            print(f"round {rnd} {name:>18}: forward {times[name]['flash_fwd'][-1]:.4f} ms, "
-                  f"dK/dV {times[name]['flash_bwd_dkv'][-1]:.4f} ms{'  DISAGREES ' + str(over) if over else ''}",
-                  flush=True)
+            print(f"round {rnd} {name:>18}: " + ", ".join(f"{label} {times[name][kern][-1]:.4f} ms"
+                                                          for kern, label in KERNELS.items())
+                  + ("  DISAGREES " + str(over) if over else ""), flush=True)
     print(json.dumps({"device": smi, "shapes": dict(B=B, T=T, H=H, D=D, causal=True, dtype="bf16"),
                       "variants": {n: {"edits": VARIANTS[n][0], "ms": times[n], "info": info[n]} for n in builds}}))
     if wrong:

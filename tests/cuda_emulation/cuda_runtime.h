@@ -111,33 +111,6 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   return r;
 }
 
-// WMMA is not emulated: the first version's bf16 dQ kernel compiles but gives
-// no meaningful result here.
-namespace nvcuda {
-namespace wmma {
-struct matrix_a {};
-struct matrix_b {};
-struct accumulator {};
-struct row_major {};
-struct col_major {};
-enum layout_t { mem_row_major };
-template <class U, int M, int N, int K, class T, class L = void>
-struct fragment {
-  T x[8];
-};
-template <class F, class T>
-void load_matrix_sync(F&, const T*, unsigned) {}
-template <class F, class T>
-void load_matrix_sync(F&, const T*, unsigned, layout_t) {}
-template <class F, class T>
-void store_matrix_sync(T*, const F&, unsigned, layout_t) {}
-template <class F, class T>
-void fill_fragment(F&, T) {}
-template <class C, class A, class B>
-void mma_sync(C&, const A&, const B&, const C&) {}
-}  // namespace wmma
-}  // namespace nvcuda
-
 // kernel<<<grid, block, smem, stream>>>(args...) becomes
 // emu_launch(kernel, grid, block, smem, stream, args...): the blocks one
 // after another, each with block.x host threads.

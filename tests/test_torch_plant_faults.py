@@ -20,7 +20,7 @@ from ray_tpu_torch.ops.plant_faults import CASES, FAULTS, OUTPUTS
 _BF16_KERNEL = {
     "flash_fwd": "flash_fwd_bf16_kernel",
     "flash_bwd_dkv": "flash_bwd_dkv_bf16_kernel",
-    "flash_bwd_dq": "flash_bwd_dq_kernel",
+    "flash_bwd_dq": "flash_bwd_dq_bf16_kernel",
 }
 
 
