@@ -25,6 +25,20 @@ line:
    remat): a warm-up step, three timed steps and one profiled step.
 5. timings: each kernel, its plain version and one PyTorch library call for
    the same function, with CUDA events, beside the card's bound.
+6. serve: the serving path (models/generate.py, serve/llm) at the flagship
+   config. bf16 function checks: ragged prefill's last-row logits against
+   forward (the flash kernel) on each row's own prompt, and the paged decode
+   chunk against the dense one on the same cache contents, both within the
+   kernel bars. f32 engine exactness: at full width and 2 layers, with a pool
+   small enough to preempt, every greedy request's tokens equal generate()'s.
+   bf16 traffic at full width and depth: 16 closed-loop streams over 8 slots
+   until 48 requests finish (a shared 64-token system prefix, seeded
+   suffixes, geometric output lengths, a quarter sampled); prints output
+   tokens/s, TTFT p50/p99, TPOT, the decode tick, the prefix hits,
+   preemptions, KV pool and peak memory, then profiles ~20 decode ticks with
+   every slot busy (device-busy share, by kind of kernel). Every greedy
+   request is then teacher-forced through forward: each emitted token's
+   logit must lie within SERVE_LOGIT_BAR of its row's maximum.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
@@ -33,11 +47,15 @@ The line before the last is {"kernels": [...]}; the last is
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
+
+import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -59,6 +77,27 @@ PROFILE_GROUPS = (
     ("copy/cast", ("copy",)),
     ("elementwise/reduce", ("elementwise", "reduce")),
 )
+
+
+# The serving phase. bench.py's TPU config, as the main path (bench.py:44-72).
+SERVE_CFG = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8, d_ff=2816, max_seq_len=1024)
+# Teacher-forced check of the bf16 traffic: the largest amount (in logits) by
+# which forward's logit of an emitted greedy token may fall short of its
+# row's maximum. Both sides' logits are bf16 products (the top ones, ~4 std
+# above 0, lie on a grid of 2**-5); sound runs read one grid step, 0.03125.
+# The bar is four steps. It is a sanity check only: it was set from sound
+# runs and never read on a planted fault, and with random weights a token
+# depends weakly on its context, so subtle scheduling faults may stay under
+# it. The f32 exactness run (tokens equal to generate(), through prefix hits
+# and preemptions at the traffic run's geometry) is the check for those.
+SERVE_LOGIT_BAR = 0.125
+TRAFFIC = dict(streams=16, requests=48, slots=8, block_size=16, prefill_chunk=128, prefix=64,
+               suffix=(32, 448), mean_new=64, new=(8, 256), sampled_every=4)
+# The f32 exactness run: prompts of the shared prefix + 32..192 tokens, 32..128
+# new tokens each, and a pool (block 0 is the null block) small enough that
+# decode runs it dry.
+EXACT = dict(requests=8, suffix=(32, 193), new=(32, 129), num_blocks=65)
+PROFILED_TICKS = 20
 
 
 def _phase(name):
@@ -179,12 +218,8 @@ def _profile(run, steps, launches):
     flash = {n: sum(t for key, t in us.items() if n in key) / 1e3 / steps for n in KERNELS}
     for n, ms in flash.items():
         print(f"in-step {n}: {ms:.3f} ms per step, {ms / launches[n]:.4f} ms per launch")
-    groups = {}
-    for key, t in us.items():
-        group = next((g for g, words in PROFILE_GROUPS if any(w in key for w in words)), "other")
-        groups[group] = groups.get(group, 0.0) + t / 1e3 / steps
     print(f"in-step device time: {total_ms:.1f} ms per step; by kind: "
-          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in _kinds(us, steps).items()))
     print("busiest:")
     for key, t in sorted(us.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {t / 1e3 / steps:8.3f} ms  {key[:110]}")
@@ -357,6 +392,319 @@ def timings_phase(torch, card, counts, errs, info, in_step):
     return rows_out
 
 
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
+
+
+def _kinds(us: dict, per: float) -> dict:
+    groups = {}
+    for key, t in us.items():
+        group = next((g for g, words in PROFILE_GROUPS if any(w in key for w in words)), "other")
+        groups[group] = groups.get(group, 0.0) + t / 1e3 / per
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def serve_functions(torch, tt, tg, A, cfg, params, device="cuda"):
+    """bf16 function checks: ragged prefill against forward per row, and the
+    paged decode chunk against the dense one on the same cache contents."""
+    rng = np.random.default_rng(0)
+    B, T, q, bs = 4, 512, 8, 16
+    lens = rng.integers(64, T + 1, B)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, T)), device=device)
+    cache = tg.init_cache(cfg, B, cfg.max_seq_len, device=device)
+    logits, cache, pos = tg.prefill(params, tokens, cache, cfg, prompt_lens=torch.tensor(lens, device=device))
+    failures, worst = [], {}
+    with torch.no_grad():
+        for b in range(B):
+            ref = tt.forward(params, tokens[b : b + 1, : lens[b]], cfg)[0][0, -1]
+            m = A.mismatch(logits[b], ref)
+            failures += [f"prefill row {b} (length {lens[b]}): {x}" for x in A.over_tolerance(m, cfg.dtype)]
+            worst = {k: max(worst.get(k, 0.0), v) for k, v in m.items()}
+    print(f"prefill B{B} T{T} prompt_lens {lens.tolist()}: last-row logits against forward, worst "
+          + " ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+    # The paged copy of the dense cache, through shuffled block tables.
+    L, S = cfg.n_layers, cfg.max_seq_len
+    n_max = S // bs
+    tables = torch.tensor(rng.permutation(np.arange(1, 1 + B * n_max)).reshape(B, n_max), device=device)
+    paged = tg.init_paged_cache(cfg, 1 + B * n_max, bs, device=device)
+    for name in ("k", "v"):
+        for b in range(B):
+            paged[name][:, tables[b]] = cache[name][:, b].reshape(L, n_max, bs, cfg.n_kv_heads, cfg.head_dim)
+    extra = torch.tensor(rng.integers(0, cfg.vocab_size, (B, q)), device=device)
+    dense, _ = tg.decode_chunk(params, extra, cache, pos, cfg)
+    got, _ = tg.paged_decode_chunk(params, extra, paged, tables, pos, cfg)
+    m = A.mismatch(got, dense)
+    failures += [f"paged decode chunk: {x}" for x in A.over_tolerance(m, cfg.dtype)]
+    print(f"paged_decode_chunk q{q} (shuffled tables) against decode_chunk: "
+          + " ".join(f"{k}={v:.2e}" for k, v in m.items()))
+    if failures:
+        raise AssertionError("serve functions disagree: " + "; ".join(failures))
+    del cache, paged
+
+
+def serve_engine_exact(torch, tt, tg, LLMEngine, cfg, device="cuda"):
+    """f32 at full width, 2 layers, with the traffic run's slots, block size,
+    prefill chunk and shared system prefix, and a pool that forces
+    preemption: every greedy request's tokens equal generate()'s, through
+    prefix-cache hits and preemptions."""
+    tr, ex = TRAFFIC, EXACT
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = tt.init_params(cfg32, seed=0, device=device)
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, cfg.vocab_size, tr["prefix"]).tolist()
+    reqs = [(system + rng.integers(0, cfg.vocab_size, rng.integers(*ex["suffix"])).tolist(),
+             int(rng.integers(*ex["new"]))) for _ in range(ex["requests"])]
+    eng = LLMEngine(params, cfg32, num_slots=tr["slots"], block_size=tr["block_size"],
+                    num_blocks=ex["num_blocks"], prefill_chunk=tr["prefill_chunk"])
+    try:
+        t0 = time.perf_counter()
+        handles = [eng.submit(*reqs[0])]
+        # The others arrive once the first has prefilled, so its system-prefix blocks are in the cache.
+        while handles[0].t_first is None and time.perf_counter() - t0 < 300:
+            time.sleep(0.002)
+        handles += [eng.submit(p, max_new_tokens=n) for p, n in reqs[1:]]
+        outs = [h.result(timeout=300) for h in handles]
+        wall = time.perf_counter() - t0
+        stats = eng.stats()
+    finally:
+        eng.shutdown()
+    wrong = []
+    for i, ((prompt, n), out) in enumerate(zip(reqs, outs)):
+        want = tg.generate(params, torch.tensor([prompt], device=device), cfg32, max_new_tokens=n)[0].tolist()
+        if out != want:
+            first = next((j for j, (a, b) in enumerate(zip(out, want)) if a != b), min(len(out), len(want)))
+            wrong.append(f"request {i}: first differs at token {first} of {n}")
+    print(f"engine f32 (2 layers, {tr['slots']} slots, {ex['num_blocks'] - 1} usable blocks of {tr['block_size']}, "
+          f"prefill chunk {tr['prefill_chunk']}, a shared {tr['prefix']}-token prefix): {len(reqs)} greedy requests "
+          f"in {wall:.1f} s, preemptions {stats['preemptions']}, prefix hits {stats['prefix_hit_blocks']} blocks, "
+          f"evictions {stats['evicted_blocks']}; {len(reqs) - len(wrong)} of {len(reqs)} equal to generate()")
+    if wrong:
+        raise AssertionError("engine tokens differ from generate(): " + "; ".join(wrong))
+    if stats["preemptions"] < 1:
+        raise AssertionError("the small pool forced no preemption")
+    if stats["prefix_hit_blocks"] < 2 * (len(reqs) - 1):
+        raise AssertionError(f"the shared prefix was hit for only {stats['prefix_hit_blocks']} blocks")
+    del params
+
+
+def _record_ticks(eng, log, step_log):
+    """Wraps the engine's decode tick: appends (ms, active slots) to `log` for
+    every tick that ran a step, and the host ms of the step's call (the
+    launches, before the logits are copied back) to `step_log`."""
+    tick, step = eng._decode_tick, eng._decode_fn
+
+    def timed_step(*args):
+        t0 = time.perf_counter()
+        out = step(*args)
+        step_log.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed():
+        n = sum(r is not None and r._sched_state == "decode" for r in eng._slots)
+        t0 = time.perf_counter()
+        ran = tick()
+        if ran and n:
+            log.append(((time.perf_counter() - t0) * 1e3, n))
+        return ran
+
+    eng._decode_tick, eng._decode_fn = timed, timed_step
+
+
+def serve_traffic(torch, A, LLMEngine, cfg, params, card, device="cuda"):
+    """Closed-loop streams over the engine at the flagship config, then (on
+    the card) profiled decode ticks; returns the numbers it prints."""
+    tr = TRAFFIC
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, cfg.vocab_size, tr["prefix"]).tolist()
+    specs = []
+    for i in range(tr["requests"]):
+        suffix = rng.integers(0, cfg.vocab_size, rng.integers(tr["suffix"][0], tr["suffix"][1] + 1)).tolist()
+        new = int(np.clip(rng.geometric(1 / tr["mean_new"]), *tr["new"]))
+        sampled = i % tr["sampled_every"] == tr["sampled_every"] - 1
+        specs.append((system + suffix, new, dict(temperature=0.8, top_k=50, seed=1234) if sampled else {}))
+    eng = LLMEngine(params, cfg, num_slots=tr["slots"], block_size=tr["block_size"],
+                    max_model_len=cfg.max_seq_len, prefill_chunk=tr["prefill_chunk"])
+    ticks, steps = [], []
+    _record_ticks(eng, ticks, steps)
+    pool_mb = sum(t.numel() * t.element_size() for t in eng._cache.values()) / 1e6
+    try:
+        eng.submit(system + specs[0][0][-100:], max_new_tokens=16).result(timeout=300)  # warm-up
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before, n_warm, s_warm = eng.stats(), len(ticks), len(steps)
+        A.reset_launch_counts()  # the serving path starts here ...
+        order, done, errors = itertools.count(), [None] * len(specs), []
+
+        def stream():
+            try:
+                while (i := next(order)) < len(specs):
+                    prompt, new, kw = specs[i]
+                    req = eng.submit(prompt, max_new_tokens=new, **kw)
+                    done[i] = (req, req.result(timeout=600))
+            except BaseException as e:  # noqa: BLE001 — reported after the join
+                errors.append(e)
+
+        threads = [threading.Thread(target=stream, name=f"stream{j}") for j in range(tr["streams"])]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        counts = A.launch_counts()  # ... and ends here
+        if errors or any(t.is_alive() for t in threads) or None in done:
+            raise AssertionError(f"traffic run failed: {errors[:3]}")
+        after = eng.stats()
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        window = ticks[n_warm:]
+        out_tokens = sum(len(toks) for _, toks in done)
+        ttft = [(r.t_first - r.t_submit) * 1e3 for r, _ in done]
+        tpot = [(r.t_done - r.t_first) * 1e3 / (len(toks) - 1) for r, toks in done if len(toks) > 1]
+        tick_ms = sorted(ms for ms, _ in window)
+        step_ms = sorted(steps[s_warm:])
+        res = {
+            "requests": len(done), "output_tokens": out_tokens,
+            "prompt_tokens": sum(len(r.prompt) for r, _ in done), "wall_s": wall,
+            "output_tokens_per_s": out_tokens / wall,
+            "ttft_ms_p50": _percentile(ttft, 50), "ttft_ms_p99": _percentile(ttft, 99),
+            "tpot_ms_mean": sum(tpot) / len(tpot),
+            "decode_tick_ms_median": tick_ms[len(tick_ms) // 2], "decode_ticks": len(window),
+            "decode_launch_ms_median": step_ms[len(step_ms) // 2],
+            "decode_slots_mean": sum(n for _, n in window) / len(window),
+            "prefix_hit_blocks": after["prefix_hit_blocks"] - before["prefix_hit_blocks"],
+            "prefix_miss_blocks": after["prefix_miss_blocks"] - before["prefix_miss_blocks"],
+            "preemptions": after["preemptions"] - before["preemptions"],
+            "kv_pool_mb": pool_mb, "peak_memory_gib": peak / 2**30, "serve_launches": counts,
+        }
+        print(f"traffic on {card}: {res['requests']} requests ({res['prompt_tokens']} prompt, {out_tokens} output "
+              f"tokens) from {tr['streams']} closed-loop streams over {tr['slots']} slots in {wall:.2f} s: "
+              f"{res['output_tokens_per_s']:.1f} output tokens/s; TTFT p50 {res['ttft_ms_p50']:.1f} ms, "
+              f"p99 {res['ttft_ms_p99']:.1f} ms (of {len(ttft)}); TPOT {res['tpot_ms_mean']:.2f} ms mean; "
+              f"decode tick {res['decode_tick_ms_median']:.2f} ms median of {len(window)} "
+              f"({res['decode_slots_mean']:.2f} slots on average), of which {res['decode_launch_ms_median']:.2f} ms "
+              f"median issuing the step's launches on the host")
+        print(f"traffic: prefix hits {res['prefix_hit_blocks']} blocks, misses {res['prefix_miss_blocks']}; "
+              f"preemptions {res['preemptions']}; KV pool {pool_mb:.1f} MB ({eng.num_blocks} blocks); "
+              f"max_memory_allocated {res['peak_memory_gib']:.2f} GiB; flash kernel launches {counts}")
+        if any(counts.values()):
+            raise AssertionError(f"the serving path launched flash kernels: {counts}")
+    finally:
+        eng.shutdown()
+    if device == "cuda":
+        res.update(_profile_decode(torch, LLMEngine, cfg, params, specs))
+    return res, done
+
+
+def _profile_decode(torch, LLMEngine, cfg, params, specs):
+    """Decode ticks with every slot busy: PROFILED_TICKS timed on the host
+    clock, then as many under torch.profiler for the device ms a tick by
+    kind; the device-busy share is the second over the first (the profiler's
+    own cost on the host would inflate a profiled tick). The profiler records
+    the launches of the thread that started it, so the ticks run on this
+    thread: an engine of the traffic run's shape whose own scheduler thread
+    is stopped, driven as the engine's white-box tests drive it (the same
+    tick code, without the thread's wake-ups)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    tr = TRAFFIC
+    eng = LLMEngine(params, cfg, num_slots=tr["slots"], block_size=tr["block_size"],
+                    max_model_len=cfg.max_seq_len, prefill_chunk=tr["prefill_chunk"])
+    eng.shutdown()
+    eng._crashed = None  # re-open submits; this thread runs the scheduler
+    for i in range(eng.num_slots):
+        eng.submit(specs[i][0][:128], max_new_tokens=256)
+    for _ in range(eng.num_slots * 8):  # admit and prefill every prompt
+        if not eng._waiting and all(r is not None and r._sched_state == "decode" for r in eng._slots):
+            break
+        eng._admit()
+        eng._prefill_tick()
+    else:
+        raise AssertionError("the profiled engine did not reach a full decode batch")
+    for _ in range(3):  # warm-up
+        eng._decode_tick()
+    torch.cuda.synchronize()
+    n = PROFILED_TICKS
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng._decode_tick()
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) * 1e3 / n
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng._decode_tick()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / n
+    del eng
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    us = {e.key: e.self_device_time_total for e in events}
+    device_ms = sum(us.values()) / 1e3
+    if device_ms <= 0:
+        print("decode ticks: device-busy share not measured (the profiler recorded no device time)")
+        return {"device_busy_share": None}
+    kinds, launches = _kinds(us, n), sum(e.count for e in events) / n
+    print(f"decode ticks, {tr['slots']} slots busy, driven on this thread: {tick_ms:.2f} ms a tick over {n} "
+          f"(under the profiler {profiled_ms:.2f}); {device_ms / n:.2f} ms of kernels and {launches:.0f} device "
+          f"operations a tick: device busy {device_ms / n / tick_ms:.1%} of a tick; by kind, ms a tick: "
+          + ", ".join(f"{g} {ms:.3f}" for g, ms in kinds.items()))
+    print("busiest:")
+    for key, t in sorted(us.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {t / 1e3 / n:8.4f} ms a tick  {key[:110]}")
+    return {"device_busy_share": device_ms / n / tick_ms, "profiled_thread_tick_ms": tick_ms,
+            "tick_ms_under_profiler": profiled_ms, "device_ops_per_tick": launches,
+            "device_ms_per_tick": device_ms / n, "device_ms_per_tick_by_kind": kinds}
+
+
+def serve_check(torch, tt, cfg, params, done, device="cuda"):
+    """Teacher-forces every greedy request's prompt + emitted tokens through
+    forward: each emitted token's logit must lie within SERVE_LOGIT_BAR of
+    its row's maximum."""
+    worst, agree, total, over = 0.0, 0, 0, []
+    with torch.no_grad():
+        for req, toks in done:
+            if req.temperature > 0:
+                continue
+            P = len(req.prompt)
+            seq = torch.tensor([req.prompt + toks[:-1]], device=device)
+            logits = tt.forward(params, seq, cfg)[0][0, P - 1 :]  # row j predicts toks[j]
+            emitted = torch.tensor(toks, device=device)
+            short = logits.max(-1).values - logits[torch.arange(len(toks), device=device), emitted]
+            worst = max(worst, short.max().item())
+            agree += (logits.argmax(-1) == emitted).sum().item()
+            total += len(toks)
+            if short.max().item() > SERVE_LOGIT_BAR:
+                over.append(f"{req.id}: {short.max().item():.3f} at token {short.argmax().item()}")
+            logit_std = logits.std().item()
+    print(f"teacher-forced check: {total} greedy tokens, {agree / total:.2%} are forward's argmax; "
+          f"largest shortfall from the row maximum {worst:.4f} (bar {SERVE_LOGIT_BAR}; logits' std ~{logit_std:.2f})")
+    if over:
+        raise AssertionError("emitted tokens beyond the bar: " + "; ".join(over))
+    return {"greedy_tokens": total, "argmax_share": agree / total, "max_shortfall": worst}
+
+
+def serve_phase(torch, card):
+    _phase("serve")
+    from ray_tpu_torch.models import generate as tg
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = tt.TransformerConfig(**SERVE_CFG, dtype=torch.bfloat16, param_dtype=torch.float32, remat=False)
+    params = tt.init_params(cfg, seed=0)
+    serve_functions(torch, tt, tg, A, cfg, params)
+    serve_engine_exact(torch, tt, tg, LLMEngine, cfg)
+    res, done = serve_traffic(torch, A, LLMEngine, cfg, params, card)
+    res.update(serve_check(torch, tt, cfg, params, done))
+    print("serve: " + json.dumps(res))
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -368,6 +716,7 @@ def main() -> int:
     errs = kernels_phase(torch)
     counts, in_step = main_path_phase(torch, smi)
     kernels = timings_phase(torch, smi, counts, errs, info, in_step)
+    serve_phase(torch, smi)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

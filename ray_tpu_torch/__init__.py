@@ -8,4 +8,8 @@ has its counterpart there:
   (``ops/csrc/*.cu``, built by ``ops/_build.py`` at the first CUDA call).
 - ``ops/losses.py``: the chunked, fused LM-head cross-entropy.
 - ``models/transformer.py``: the flagship decoder, its loss and train step.
+- ``models/generate.py``: KV-cache inference (prefill, decode, paged decode,
+  sampling, ``generate``, ``speculative_generate``).
+- ``serve/llm``: the continuous-batching LLM engine on the paged cache.
+- ``_private/concurrency.py``: the thread-affinity markers the engine uses.
 """

@@ -1,4 +1,5 @@
-"""Models of the port: the flagship decoder-only transformer (dense path)."""
+"""Models of the port: the flagship decoder-only transformer (dense path) and
+its KV-cache inference (``models.generate``)."""
 
 from ray_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,

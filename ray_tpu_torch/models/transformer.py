@@ -171,18 +171,19 @@ def _rms_norm(x, weight, eps):
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
 
 
-def _rope_tables(T: int, Dh: int, theta: float, device):
-    """cos/sin rotation tables [T, Dh/2] (f32), built once per step and shared
-    by every layer."""
-    freqs = theta ** (-torch.arange(0, Dh // 2, dtype=torch.float32, device=device) / (Dh // 2))
-    angles = torch.arange(T, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+def _rope_tables(positions, Dh: int, theta: float):
+    """cos/sin rotation tables [B, T, Dh/2] (f32) for integer positions
+    [B, T] (B may be 1 to broadcast), built once per step and shared by every
+    layer."""
+    freqs = theta ** (-torch.arange(0, Dh // 2, dtype=torch.float32, device=positions.device) / (Dh // 2))
+    angles = positions[:, :, None].float() * freqs[None, None, :]
     return torch.cos(angles), torch.sin(angles)
 
 
 def _rope_apply(x, cos, sin):
     # x: [B, T, H, Dh]; rotate the two halves of Dh (not interleaved pairs).
     x1, x2 = x.chunk(2, dim=-1)
-    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
@@ -218,7 +219,7 @@ def forward_hidden(params: dict, tokens, cfg: TransformerConfig, mesh=None, attn
     _check_supported(cfg, mesh, attn_impl)
     T = tokens.shape[1]
     x = params["embed"].to(cfg.dtype)[tokens]
-    cos, sin = _rope_tables(T, cfg.head_dim, cfg.rope_theta, x.device)
+    cos, sin = _rope_tables(torch.arange(T, device=x.device)[None], cfg.head_dim, cfg.rope_theta)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = {n: w[i] for n, w in layers.items()}

@@ -102,3 +102,31 @@ def test_backward_is_deterministic(cuda, dtype):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+@pytest.mark.gpu
+def test_engine_on_the_card_matches_dense_generate(cuda):
+    """The serving path on the card, f32: the continuous-batching engine's
+    greedy tokens (paged cache, chunked prefill, a shared two-block prefix
+    served from the prefix cache, a pool small enough to preempt) equal
+    dense generate()'s on the same prompts."""
+    from ray_tpu_torch.models import generate as tg
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tt.TransformerConfig(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
+                               max_seq_len=64, dtype=torch.float32, remat=False)
+    params = tt.init_params(cfg, seed=0, device=cuda)
+    g = torch.Generator().manual_seed(3)
+    system = torch.randint(0, 128, (8,), generator=g).tolist()
+    prompts = [system + torch.randint(0, 128, (int(n),), generator=g).tolist() for n in (3, 12, 1, 9)]
+    eng = LLMEngine(params, cfg, num_slots=2, block_size=4, max_model_len=40, num_blocks=13, prefill_chunk=4)
+    try:
+        outs = [r.result(timeout=60) for r in [eng.submit(p, max_new_tokens=20) for p in prompts]]
+        assert eng.stats()["preemptions"] >= 1
+        assert eng.stats()["prefix_hit_blocks"] >= 2
+    finally:
+        eng.shutdown()
+    for p, out in zip(prompts, outs):
+        assert out == tg.generate(params, torch.tensor([p], device=cuda), cfg, max_new_tokens=20)[0].tolist()

@@ -17,7 +17,8 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.models, ray_tpu_torch.ops.attention, "
-        "ray_tpu_torch.ops.losses, ray_tpu_torch.ops._build\n"
+        "ray_tpu_torch.ops.losses, ray_tpu_torch.ops._build, ray_tpu_torch.models.generate, "
+        "ray_tpu_torch.serve, ray_tpu_torch.serve.llm\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -49,6 +50,7 @@ def test_no_source_imports_jax_or_ray_tpu():
 
 def test_entry_points_raise_without_a_card():
     from ray_tpu_torch.models import TransformerConfig, adamw, init_params, make_train_step
+    from ray_tpu_torch.models.generate import init_cache, init_paged_cache
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-card path cannot be exercised")
@@ -58,3 +60,7 @@ def test_entry_points_raise_without_a_card():
     params = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_train_step(cfg, adamw(params))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_paged_cache(cfg, 4, 4)
