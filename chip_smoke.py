@@ -39,6 +39,21 @@ line:
    every slot busy (device-busy share, by kind of kernel). Every greedy
    request is then teacher-forced through forward: each emitted token's
    logit must lie within SERVE_LOGIT_BAR of its row's maximum.
+7. trainer: the port's runtime and trainer drive the main path's train step
+   in a worker process: ray_tpu_torch.init(num_cpus=4, num_gpus=1), then
+   TorchTrainer(train_loop, ScalingConfig(num_workers=1, use_gpu=True)).fit()
+   with the flagship loop (ray_tpu_torch/train/flagship_loop.py, the port of
+   bench.py's train_loop) at the main path's config, weights from seed 0 and
+   the batch from seed 1: two warm-up steps, then ABBA-ordered raw and
+   framework chunks of 8 steps, then 3 steps under torch.profiler in the
+   worker. Prints the worker's card, its own kernel launch counts, its first
+   loss beside the main path's, framework and raw tokens/s and their ratio,
+   its device ms per step by kind and its device-busy share (the profiled
+   device time over the raw step), its peak memory and the time from init()
+   to its first report; fails unless the card is the driver's, each kernel
+   ran 8x per step in the worker, the first loss is the main path's within
+   TRAINER_LOSS_RTOL, the loop ran in a process of its own, and shutdown()
+   leaves neither that process nor any other worker behind.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
@@ -50,8 +65,11 @@ import dataclasses
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -98,6 +116,13 @@ TRAFFIC = dict(streams=16, requests=48, slots=8, block_size=16, prefill_chunk=12
 # decode runs it dry.
 EXACT = dict(requests=8, suffix=(32, 193), new=(32, 129), num_blocks=65)
 PROFILED_TICKS = 20
+# The trainer phase: bench.py's loop shape at the main path's config
+# (bench.py:44-71, as main_path_phase), a few rounds of 8-step chunks.
+TRAINER = dict(warmup=2, rounds=4, chunk=8, lag=4, profile_steps=3)
+# The worker's first loss against main_path_phase's: the same program on the
+# same inputs in another process, so they differ only where a library picks
+# another reduction order.
+TRAINER_LOSS_RTOL = 1e-3
 
 
 def _phase(name):
@@ -274,7 +299,7 @@ def main_path_phase(torch, card):
         fused_loss=False, scan_unroll=8,
     )
     B, L = MAIN["B"], cfg.n_layers
-    _, ms, counts, peak, prof = _train(torch, tt, A, cfg, STEPS, B, "bench config", profiled=PROFILED)
+    losses, ms, counts, peak, prof = _train(torch, tt, A, cfg, STEPS, B, "bench config", profiled=PROFILED)
     n_steps = 1 + STEPS + PROFILED
     want = {n: n_steps * L for n in counts}
     print(f"launches over {n_steps} steps: {counts} (expected {want})")
@@ -301,7 +326,7 @@ def main_path_phase(torch, card):
     if prof2 is not None:
         print(f"defaults: device-busy share of the median step: {prof2[0] / med2:.1%} ({prof2[0]:.1f} ms of kernels)")
     # in-step ms per launch of each flash kernel (empty when not measured)
-    return counts, ({n: t / L for n, t in prof[1].items()} if prof else {})
+    return counts, ({n: t / L for n, t in prof[1].items()} if prof else {}), losses[0], med
 
 
 def _time_ms(torch, fn, iters):
@@ -705,6 +730,112 @@ def serve_phase(torch, card):
     return res
 
 
+def _alive(pid: int) -> bool:
+    """True while `pid` runs (a zombie counts as gone)."""
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def trainer_phase(torch, card, main_first_loss, main_step_ms):
+    """The main path's train step in a GPU worker actor, through the port's
+    init() and TorchTrainer; returns the worker's launch counts."""
+    _phase("trainer")
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.air.config import RunConfig, ScalingConfig
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.train.flagship_loop import train_loop
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    config = dict(
+        model=dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8, d_ff=2816,
+                   max_seq_len=1024, remat=False, fused_loss=False, scan_unroll=8),
+        dtype="bfloat16", batch=MAIN["B"], seq=MAIN["T"], param_seed=0, batch_seed=1, **TRAINER,
+    )
+    storage = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    A.reset_launch_counts()
+    t0 = time.time()
+    rt.init(num_cpus=4, num_gpus=1)
+    try:
+        print(f"init: {time.time() - t0:.2f} s; cluster resources {rt.cluster_resources()}")
+        result = TorchTrainer(
+            train_loop, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=storage),
+        ).fit()
+        # The raylet's workers and, whether or not it is still listed, the
+        # process the loop reported it ran in.
+        pids = sorted({w.pid for w in rt._global_node.raylet.workers.values() if w.pid} | {result.metrics["pid"]})
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = [p for p in pids if _alive(p)]
+    driver_counts = A.launch_counts()
+    m = result.metrics
+    steps, counts, L = m["steps"], m["launches"], config["model"]["n_layers"]
+    tok = MAIN["B"] * MAIN["T"]
+    raw_ms = tok / m["tokens_per_sec_raw"] * 1e3
+    n_prof = TRAINER["profile_steps"]
+    device_ms = sum(m["device_us"].values()) / 1e3 / n_prof
+    flash_ms = {n: sum(t for key, t in m["device_us"].items() if n in key) / 1e3 / n_prof for n in KERNELS}
+    rel = abs(m["first_loss"] - main_first_loss) / abs(main_first_loss)
+    print(f"worker device: {m['device_name']} (driver's card: {torch.cuda.get_device_name(0)}); the loop ran "
+          f"in pid {m['pid']}; worker pids {pids}, {len(left)} left after shutdown()")
+    print(f"worker launches over {steps} steps: {counts} (expected {steps * L} each); "
+          f"driver launches meanwhile: {driver_counts}")
+    print(f"first loss: worker {m['first_loss']:.6f}, main path {main_first_loss:.6f} "
+          f"(relative difference {rel:.2e}, bar {TRAINER_LOSS_RTOL})")
+    print(f"trainer on {card}: framework {m['tokens_per_sec_framework']:.0f} tokens/s, raw "
+          f"{m['tokens_per_sec_raw']:.0f} tokens/s, ratio {m['ratio']:.4f} (raw time / framework time; "
+          f"{TRAINER['rounds']} ABBA rounds of {TRAINER['chunk']}-step chunks); worker step "
+          f"{tok / m['tokens_per_sec_raw'] * 1e3:.1f} ms raw, {tok / m['tokens_per_sec_framework'] * 1e3:.1f} ms "
+          f"framework (main path's median {main_step_ms:.1f} ms); worker max_memory_allocated "
+          f"{m['peak_memory_bytes'] / 2**30:.2f} GiB; init() to first report {m['first_report_time'] - t0:.2f} s "
+          f"(init() to the loop's start in the worker {m['start_time'] - t0:.2f} s, then set-up and the first "
+          f"step {m['first_report_time'] - m['start_time']:.2f} s)")
+    if device_ms > 0:
+        print(f"worker, {n_prof} steps under torch.profiler: device time {device_ms:.1f} ms per step, "
+              f"device busy {device_ms / raw_ms:.1%} of the raw step; by kind: "
+              + ", ".join(f"{g} {ms:.1f} ms" for g, ms in _kinds(m["device_us"], n_prof).items())
+              + "; flash kernels, ms per step: " + ", ".join(f"{n} {ms:.3f}" for n, ms in flash_ms.items()))
+    else:
+        print("worker device time: not measured (the profiler recorded no device time)")
+    failures = []
+    if m["device_name"] != torch.cuda.get_device_name(0):
+        failures.append(f"the worker ran on {m['device_name']!r}")
+    if counts != {n: steps * L for n in KERNELS}:
+        failures.append(f"the worker launched {counts}, not {L} per step")
+    if not rel <= TRAINER_LOSS_RTOL:
+        failures.append(f"first loss {m['first_loss']} is not the main path's {main_first_loss}")
+    if m["pid"] == os.getpid():
+        failures.append("the loop ran in the driver's process, not in a worker")
+    if left:
+        failures.append(f"worker processes {left} outlived shutdown()")
+    if any(driver_counts.values()):
+        failures.append(f"the driver launched kernels during the trainer run: {driver_counts}")
+    if failures:
+        raise AssertionError("trainer phase: " + "; ".join(failures))
+    print("trainer: " + json.dumps({
+        "device_name": m["device_name"], "steps": steps, "launches": counts, "first_loss": m["first_loss"],
+        "main_first_loss": main_first_loss, "tokens_per_sec_framework": m["tokens_per_sec_framework"],
+        "tokens_per_sec_raw": m["tokens_per_sec_raw"], "ratio": m["ratio"],
+        "peak_memory_gib": m["peak_memory_bytes"] / 2**30,
+        "init_to_first_report_s": m["first_report_time"] - t0, "init_to_loop_start_s": m["start_time"] - t0,
+        "worker_device_ms_per_step": device_ms or None,
+        "worker_device_busy_share": device_ms / raw_ms if device_ms else None,
+    }))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -714,9 +845,12 @@ def main() -> int:
     smi, card = device_phase(torch)
     info = build_phase()
     errs = kernels_phase(torch)
-    counts, in_step = main_path_phase(torch, smi)
+    counts, in_step, first_loss, step_ms = main_path_phase(torch, smi)
     kernels = timings_phase(torch, smi, counts, errs, info, in_step)
     serve_phase(torch, smi)
+    worker_counts = trainer_phase(torch, smi, first_loss, step_ms)
+    for row in kernels:
+        row["worker_launches"] = worker_counts[row["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

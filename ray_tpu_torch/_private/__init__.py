@@ -1,1 +1,1 @@
-"""The port's own copies of ``ray_tpu._private`` helpers (no JAX in them)."""
+"""The port's own copies of ``ray_tpu/_private`` modules (no JAX in them)."""

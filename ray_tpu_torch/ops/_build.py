@@ -11,12 +11,20 @@ the objects link into one shared library:
 The library is rebuilt only when the sources or flags change (their SHA-256
 is kept beside it). The build happens at the first CUDA call, never at
 import. A failed build raises: nothing falls back to the plain versions.
+
+Several processes may build at once (two GPU workers of a fresh checkout, or
+a driver and its worker): a build takes an exclusive lock on a file in the
+build directory, looks at the stamp again under it (another process may
+have built the library while this one waited), compiles into a temporary
+directory and moves the library, then the stamp, into place with
+``os.replace``. No process ever loads a half-written library.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -150,19 +158,38 @@ def load_kernels() -> Kernels:
     return build_and_load(CSRC, BUILD_DIR)
 
 
-def build_and_load(csrc: Path, build_dir: Path) -> Kernels:
-    """Build the sources in `csrc` into `build_dir` (unless the library there
-    was built from the same sources and flags) and load the library."""
+def ensure_built(csrc: Path, build_dir: Path) -> tuple[Path, str, float]:
+    """Build the sources in `csrc` into `build_dir` unless the library there
+    was built from the same sources and flags. Returns (library path, nvcc's
+    output, seconds of the build); the last two are "" and 0.0 when this
+    process did not compile."""
     build_dir.mkdir(parents=True, exist_ok=True)
     lib_path = build_dir / LIB_NAME
     stamp = build_dir / (LIB_NAME + ".sha256")
     digest = _digest(csrc)
-    log, seconds = "", 0.0
-    if not (lib_path.exists() and stamp.exists() and stamp.read_text() == digest):
+
+    def built() -> bool:
+        return lib_path.exists() and stamp.exists() and stamp.read_text() == digest
+
+    if built():
+        return lib_path, "", 0.0
+    with open(build_dir / (LIB_NAME + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes, or the process dies
+        if built():
+            return lib_path, "", 0.0
         t0 = time.perf_counter()
         log = _compile(csrc, lib_path)
         seconds = time.perf_counter() - t0
-        stamp.write_text(digest)
+        tmp = stamp.with_name(f"{stamp.name}.{os.getpid()}")
+        tmp.write_text(digest)
+        os.replace(tmp, stamp)
+    return lib_path, log, seconds
+
+
+def build_and_load(csrc: Path, build_dir: Path) -> Kernels:
+    """Build the sources in `csrc` into `build_dir` (unless the library there
+    was built from the same sources and flags) and load the library."""
+    lib_path, log, seconds = ensure_built(csrc, build_dir)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -57,18 +57,13 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private.concurrency import any_thread, blocking
+from ray_tpu_torch.exceptions import ReplicaDrainingError
 from ray_tpu_torch.serve.llm.stats import ENGINES
 
 # Terminal error of a deliberate engine teardown: requests that die with it
 # raise ReplicaDrainingError (a caller may resubmit elsewhere); every other
 # error string is a plain RuntimeError.
 SHUTDOWN_ERROR = "engine shutdown"
-
-
-class ReplicaDrainingError(RuntimeError):
-    """The engine is draining or shut down (deliberate retirement) and refuses
-    or ended the request; callers should resubmit on another replica. The
-    port's copy of ``ray_tpu.exceptions.ReplicaDrainingError``."""
 
 
 def _request_error(val: str) -> Exception:

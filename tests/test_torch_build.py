@@ -63,3 +63,64 @@ def test_the_parser_reads_pointers_ints_and_floats():
     assert ret == "int"
     assert [_ctype(a) for a in args[:5]] == [ctypes.c_void_p] * 5
     assert args[5] == "int is_bf16" and args[11] == "float scale" and args[-1] == "void* stream"
+
+
+_RACER = r"""
+import os, sys, time
+from pathlib import Path
+from ray_tpu_torch.ops import _build
+
+csrc, build_dir, log, go = (Path(a) for a in sys.argv[1:5])
+
+
+def slow_compile(csrc, out):
+    # What _compile does, slowly: write the library under another name, then
+    # move it into place; count each compile in `log`.
+    with open(log, "a") as f:
+        f.write(f"{os.getpid()}\n")
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    with open(tmp, "wb") as f:
+        for _ in range(8):
+            f.write(b"\x7fELF" * 32768)
+            f.flush()
+            time.sleep(0.1)
+    os.replace(tmp, out)
+    return "compiled"
+
+
+_build._compile = slow_compile
+while not go.exists():  # start together
+    time.sleep(0.005)
+lib, text, seconds = _build.ensure_built(csrc, build_dir)
+print(text or "cached", lib.stat().st_size)
+"""
+
+
+def test_concurrent_builds_compile_once(tmp_path):
+    """Two processes that find no library build it once: the second waits on
+    the lock, then finds the stamp and the complete file."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('extern "C" int k() { return 0; }\n')
+    build_dir, log, go = tmp_path / "build", tmp_path / "compiles.log", tmp_path / "go"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _RACER, str(csrc), str(build_dir), str(log), str(go)],
+                         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(2)
+    ]
+    time.sleep(1.0)  # both interpreters up and waiting
+    go.touch()
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err for _, err in outs]
+    full = 8 * 4 * 32768
+    assert sorted(out.split()[0] for out, _ in outs) == ["cached", "compiled"]
+    assert all(int(out.split()[1]) == full for out, _ in outs)
+    assert len(log.read_text().split()) == 1
+    assert (build_dir / (_build.LIB_NAME + ".sha256")).read_text() == _build._digest(csrc)
+    assert (build_dir / _build.LIB_NAME).stat().st_size == full

@@ -1,7 +1,10 @@
-"""ray_tpu_torch stands alone: no JAX, nothing of ray_tpu, no silent CPU path."""
+"""ray_tpu_torch stands alone: no JAX, nothing of ray_tpu, no silent CPU path,
+and its runtime never meets the JAX package's: no module path, environment
+variable or session directory of one names the other's."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -18,7 +21,9 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.models, ray_tpu_torch.ops.attention, "
         "ray_tpu_torch.ops.losses, ray_tpu_torch.ops._build, ray_tpu_torch.models.generate, "
-        "ray_tpu_torch.serve, ray_tpu_torch.serve.llm\n"
+        "ray_tpu_torch.serve, ray_tpu_torch.serve.llm, ray_tpu_torch._private.core_worker, "
+        "ray_tpu_torch._private.worker_main, ray_tpu_torch._private.node, ray_tpu_torch.train.torch, "
+        "ray_tpu_torch.train.flagship_loop, ray_tpu_torch.air.execution\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -48,6 +53,67 @@ def test_no_source_imports_jax_or_ray_tpu():
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_worker_runtime_imports_no_torch():
+    """The zygote forks workers after importing the worker runtime; torch (and
+    with it any CUDA state) must stay out of that process until a task needs
+    it."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch, ray_tpu_torch._private.core_worker, ray_tpu_torch._private.worker_context, "
+        "ray_tpu_torch._private.worker_main, ray_tpu_torch._private.zygote, ray_tpu_torch.util.tracing\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+# The one variable of the JAX package's name the port reads: a debug switch
+# that carries no state (the thread-affinity asserts of _private/concurrency.py).
+SHARED_ENV = {"RAY_TPU_DEBUG_AFFINITY"}
+
+
+def _foreign_names(text: str) -> list[str]:
+    """What in one string literal names the JAX package's runtime or a path
+    that two runtimes would share: a ``ray_tpu.`` module path, a ``RAY_TPU_``
+    variable without the port's ``RAY_TPU_TORCH_`` prefix (bar SHARED_ENV),
+    or a fixed ``/tmp/`` or ``/dev/shm/`` path (the port roots what it writes
+    under ``tempfile.gettempdir()``, so a TMPDIR keeps two checkouts apart)."""
+    found = re.findall(r"\bray_tpu\.[\w.]*", text)
+    found += [v for v in re.findall(r"RAY_TPU_\w*", text) if not v.startswith("RAY_TPU_TORCH_") and v not in SHARED_ENV]
+    found += re.findall(r"/(?:tmp|dev/shm)(?:/|$)\S*", text)
+    return found
+
+
+def test_no_string_names_the_jax_runtime():
+    """Worker argv (``-m ...worker_main``), importlib paths, environment
+    variables and session paths are strings the import scan cannot see."""
+    files = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                bad += [f"{path.relative_to(ROOT)}:{node.lineno}: {n}" for n in _foreign_names(node.value)]
+    assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize("text,names", [
+    ("-m ray_tpu._private.worker_main", ["ray_tpu._private.worker_main"]),
+    ("-m ray_tpu_torch._private.worker_main", []),
+    ("RAY_TPU_GCS_ADDR", ["RAY_TPU_GCS_ADDR"]),
+    ("RAY_TPU_TORCH_GCS_ADDR RAY_TPU_DEBUG_AFFINITY", []),
+    ("/tmp/ray_tpu/session_1", ["/tmp/ray_tpu/session_1"]),
+    ("/tmp/ray_tpu_torch/session_1", ["/tmp/ray_tpu_torch/session_1"]),
+    ("/dev/shm/ray_tpu_torch_flight", ["/dev/shm/ray_tpu_torch_flight"]),
+    ("ray_tpu_torch/results", []),
+])
+def test_the_string_scan_sees_each_kind(text, names):
+    assert _foreign_names(text) == names
+
+
 def test_entry_points_raise_without_a_card():
     from ray_tpu_torch.models import TransformerConfig, adamw, init_params, make_train_step
     from ray_tpu_torch.models.generate import init_cache, init_paged_cache
@@ -64,3 +130,31 @@ def test_entry_points_raise_without_a_card():
         init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_paged_cache(cfg, 4, 4)
+
+    # The trainer: the default ScalingConfig asks for a card, and fit() raises
+    # before it starts a worker (it never trains on the CPU).
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train.flagship_loop import train_loop
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    # Checkpoints restore onto the card unless asked for the CPU, and outside
+    # a train session the worker's device is the card: both raise here.
+    from ray_tpu_torch.air.checkpoint import checkpoint_from_tensors, tensors_from_checkpoint
+    from ray_tpu_torch.train.torch import get_device, prepare_batch
+
+    ckpt = checkpoint_from_tensors({"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tensors_from_checkpoint(ckpt)
+    assert tensors_from_checkpoint(ckpt, device="cpu")["w"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare_batch({"x": [1.0]})
+
+    rt.init(num_cpus=1, object_store_memory=64 * 1024 * 1024)
+    try:
+        with pytest.raises(RuntimeError, match="needs 1 GPU"):
+            TorchTrainer(train_loop, train_loop_config={}).fit()
+        assert rt._global_node.raylet.workers == {}
+    finally:
+        rt.shutdown()
