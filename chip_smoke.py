@@ -53,14 +53,40 @@ line:
    to its first report; fails unless the card is the driver's, each kernel
    ran 8x per step in the worker, the first loss is the main path's within
    TRAINER_LOSS_RTOL, the loop ran in a process of its own, and shutdown()
-   leaves neither that process nor any other worker behind.
+   leaves neither that process nor any other worker behind. In the same
+   cluster, "moe trainer": the loop at the moe train phase's config for a
+   few steps, with the same checks against that phase's first loss.
+8. moe train: the flagship widths with 8 experts (top-1, capacity factor
+   1.25: 160 slots per row and expert; ~653M params, ~554M of them expert
+   weights), bf16, batch 12 x 1024, unfused loss, no remat. The first loss,
+   forward only on the initial weights, with the kernels and with their plain
+   versions on the card: the two within MOE_LOSS_RTOL, and the share of
+   (token, layer) expert choices that agree printed and held to
+   MOE_ROUTING_AGREE. Then 2 warm-up, 8 timed and 3 profiled steps: step ms,
+   tokens/s, peak memory, 8 launches per kernel per step, device ms by kind
+   and for each part of the expert layer (route, dispatch, experts, combine,
+   weight casts; forward and backward).
+9. moe serve: the serve phase's functions at the moe config: prefill and
+   paged decode in f32 (bf16 rounding flips near-tied expert choices, which
+   no bar on logits survives), the f32 engine against generate(), and bf16
+   traffic cut to MOE_TRAFFIC_REQUESTS requests; its teacher-forced check
+   counts the tokens beyond SERVE_LOGIT_BAR and holds their share to
+   MOE_SERVE_BEYOND.
+10. zoo: ViT-B/16 inference (224^2, batch 64, bf16; 12 forward-kernel
+   launches a batch), its logits against the same model on the kernels'
+   plain versions, images/s; the forward kernel at ViT's shape (B 64, T 197,
+   H 12, D 64, non-causal) timed against its plain version and SDPA, beside
+   its bound; ResNet-50 inference (224^2, batch 64, bf16, eval), images/s;
+   and a few MNIST-MLP train steps.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
+Phases run in the order 1-6, 8, 9, 7 (both trainer runs in one cluster), 10.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -123,6 +149,32 @@ TRAINER = dict(warmup=2, rounds=4, chunk=8, lag=4, profile_steps=3)
 # same inputs in another process, so they differ only where a library picks
 # another reduction order.
 TRAINER_LOSS_RTOL = 1e-3
+# The mixture-of-experts phases: SERVE_CFG's widths with 8 experts, top-1.
+MOE = dict(num_experts=8, expert_capacity_factor=1.25)
+MOE_TRAIN = dict(warmup=2, steps=8, profiled=3)
+# The first loss with the kernels against the same forward on their plain
+# versions (bf16): the attention outputs differ by the kernels' rounding, and
+# a near-tied expert choice can flip between the two. Set from the card's
+# readings: a relative difference of 1.84e-6, and 99.77% of the 98,304
+# (token, layer) choices equal; the bars sit ~10x and ~4x away.
+MOE_LOSS_RTOL = 2e-5
+MOE_ROUTING_AGREE = 0.99  # least share of (token, layer) expert choices equal in the two runs
+MOE_TRAFFIC_REQUESTS = 24  # the dense traffic's 48, cut to hold the script's wall time
+# bf16 serving under experts: the engine's decode and forward's recomputation
+# may route a near-tied token to different experts, so some emitted tokens
+# fall short of forward's maximum by more than SERVE_LOGIT_BAR; the greatest
+# share of greedy tokens that may. Readings: none of 928 on the card (the
+# largest shortfall at the bar itself), 1 of 928 in a CPU run at a small width.
+MOE_SERVE_BEYOND = 0.01
+TRAINER_MOE = dict(warmup=2, rounds=1, chunk=4, lag=4, profile_steps=0)
+# The zoo phase: batch 64 at 224^2 in bf16.
+ZOO = dict(batch=64, image=224, batches=10, mlp_steps=20, mlp_batch=256)
+VIT = dict(B=64, T=197, H=12, D=64)  # the forward kernel's shape in ViT-B/16
+# ViT-B/16's logits on the kernel against the same model on the plain
+# attention: rel_l2 over the [64, 1000] logits. Each of the 12 layers adds the
+# kernel's bf16 rounding (rel_l2 ~2.3e-3 at this shape); the card read
+# 1.13e-2, ~4x below the bar.
+VIT_LOGIT_RTOL = 5e-2
 
 
 def _phase(name):
@@ -187,8 +239,10 @@ def kernels_phase(torch):
         # more ragged lengths, and Tq < Tk with a bottom-right offset (832) that is no multiple of 128
         ("ragged960", "bf16", 2, 960, 960, 8, 128, True, 0),
         ("tq192<tk", "bf16", 2, 192, 1024, 8, 128, True, 0),
+        # ViT-B/16's attention: 196 patches + the class token, non-causal
+        ("vit", "bf16", VIT["B"], VIT["T"], VIT["T"], VIT["H"], VIT["D"], False, 0),
     ]
-    main_err, failures = {}, []
+    errs, failures = {}, []
     for i, (name, dt, B, Tq, Tk, H, D, causal, window) in enumerate(cases):
         q, k, v, dout = _inputs(torch, i, dtypes[dt], B, Tq, Tk, H, D)
         scale = D**-0.5
@@ -212,20 +266,56 @@ def kernels_phase(torch):
               + " ".join(f"{w} rel_l2={r['rel_l2']:.2e} elem={r['elem']:.2e} max_abs={r['max_abs']:.2e}"
                          for w, r in m.items()), flush=True)
         if (name, dt) == ("main", "bf16"):
-            main_err = {"flash_fwd": (m["out"], m["lse"]), "flash_bwd_dkv": (m["dk"], m["dv"]),
-                        "flash_bwd_dq": (m["dq"],)}
+            errs.update({"flash_fwd": (m["out"], m["lse"]), "flash_bwd_dkv": (m["dk"], m["dv"]),
+                         "flash_bwd_dq": (m["dq"],)})
+        if name == "vit":
+            errs["flash_fwd_vit"] = (m["out"],)
         del q, k, v, dout, out_ref, lse_ref, dq_ref, dk_ref, dv_ref, out, out_primal, lse, dq, dk, dv, again
     if failures:
         raise AssertionError("kernel disagrees with its plain version: " + "; ".join(failures))
     print(f"all {len(cases)} cases within the bars {A.MATCH_TOL}")
-    return main_err
+    return errs
 
 
-def _profile(run, steps, launches):
+def moe_parts(prof, steps):
+    """ms per step of each part of the expert layer, from the ``moe/...``
+    ranges of ``parallel/moe.py`` and ``models/transformer.py``: forward, the
+    kernels launched inside a range; backward, those of the autograd nodes
+    that the range's forward ops recorded (matched by sequence number).
+    Returns {part: (forward ms, backward ms)}, and prints each part's
+    busiest forward kernels."""
+    events = prof.events()
+    part_of, fwd, bwd, kernels = {}, {}, {}, {}
+    for e in events:
+        if not e.name.startswith("moe/"):
+            continue
+        fwd[e.name] = fwd.get(e.name, 0.0) + e.device_time_total / 1e3 / steps
+        stack = list(e.cpu_children)
+        while stack:
+            c = stack.pop()
+            if c.sequence_nr >= 0:
+                part_of[c.sequence_nr] = e.name
+            for k in c.kernels:
+                by_name = kernels.setdefault(e.name, {})
+                by_name[(c.name, k.name)] = by_name.get((c.name, k.name), 0.0) + k.duration / 1e3 / steps
+            stack.extend(c.cpu_children)
+    for part, by_name in sorted(kernels.items()):
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        print(f"  {part} forward, busiest: " + "; ".join(f"{op} {ms:.2f} ms ({k[:60]})" for (op, k), ms in top))
+    for e in events:
+        if e.name.startswith("autograd::engine::evaluate_function") and e.sequence_nr in part_of:
+            part = part_of[e.sequence_nr]
+            bwd[part] = bwd.get(part, 0.0) + e.device_time_total / 1e3 / steps
+    return {p: (fwd[p], bwd.get(p, 0.0)) for p in sorted(fwd)}
+
+
+def _profile(run, steps, launches, parts=False):
     """`steps` more train steps under torch.profiler. Prints each flash
-    kernel's device time per step and the busiest device kernels; returns
-    (device ms per step of every kernel, {flash kernel: ms per step}), or None
-    when the profiler saw no device time."""
+    kernel's device time per step and the busiest device kernels (and, with
+    ``parts``, the expert layer's parts); returns (device ms per step of
+    every kernel, {flash kernel: ms per step}, {kind: ms per step}, {part:
+    (forward, backward) ms per step} or None, ms per step of the layer slices'
+    gradients), or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -243,28 +333,46 @@ def _profile(run, steps, launches):
     flash = {n: sum(t for key, t in us.items() if n in key) / 1e3 / steps for n in KERNELS}
     for n, ms in flash.items():
         print(f"in-step {n}: {ms:.3f} ms per step, {ms / launches[n]:.4f} ms per launch")
+    kinds = _kinds(us, steps)
     print(f"in-step device time: {total_ms:.1f} ms per step; by kind: "
-          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in _kinds(us, steps).items()))
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in kinds.items()))
+    # Each layer reads its weights as a slice w[i] of the [L, ...] stack; the
+    # slice's backward writes a full-size zero gradient and the engine adds
+    # the L of them up.
+    slices_ms = sum(e.device_time_total for e in prof.events()
+                    if e.name == "autograd::engine::evaluate_function: SelectBackward0") / 1e3 / steps
+    print(f"of which the layer slices' gradients (SelectBackward0 nodes: zero-filled full-size gradients and "
+          f"their sum over layers): {slices_ms:.1f} ms per step")
+    part_ms = None
+    if parts:
+        part_ms = moe_parts(prof, steps)
+        print("of which the expert layer's parts, ms per step (forward + backward): "
+              + ", ".join(f"{p[4:]} {f:.2f} + {b:.2f}" for p, (f, b) in part_ms.items()))
     print("busiest:")
     for key, t in sorted(us.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {t / 1e3 / steps:8.3f} ms  {key[:110]}")
-    return total_ms, flash
+    return total_ms, flash, kinds, part_ms, slices_ms
 
 
-def _train(torch, tt, A, cfg, steps, batch_size, label, profiled=0):
-    """Warm-up step + `steps` timed steps + `profiled` steps under the
-    profiler, on one fixed batch; returns (losses, step ms, launch counts,
-    peak memory, profile)."""
+def _batch(torch, vocab_size, batch_size):
+    """The fixed training batch: [batch_size, T + 1] tokens from seed 1."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    return {"tokens": torch.randint(0, vocab_size, (batch_size, MAIN["T"] + 1), generator=g, device="cuda")}
+
+
+def _train(torch, tt, A, cfg, steps, batch_size, label, profiled=0, warmup=1, parts=False):
+    """`warmup` steps + `steps` timed steps + `profiled` steps under the
+    profiler, on one fixed batch, from the weights of seed 0; returns
+    (losses, timed step ms, launch counts, peak memory, profile)."""
     params = tt.init_params(cfg, seed=0)
     opt = tt.adamw(params)
     step = tt.make_train_step(cfg, opt)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch_size, MAIN["T"] + 1), generator=g, device="cuda")}
+    batch = _batch(torch, cfg.vocab_size, batch_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()  # the main path starts here ...
     losses, ms = [], []
-    for _ in range(1 + steps):
+    for _ in range(warmup + steps):
         t0 = time.perf_counter()
         loss = step(params, batch).item()  # .item() waits for the step
         ms.append((time.perf_counter() - t0) * 1e3)
@@ -273,7 +381,7 @@ def _train(torch, tt, A, cfg, steps, batch_size, label, profiled=0):
     if profiled:
         # remat recomputes each layer's forward in the backward: 2 forward launches per layer.
         launches = {n: cfg.n_layers * (2 if n == "flash_fwd" and cfg.remat else 1) for n in KERNELS}
-        prof = _profile(lambda: losses.append(step(params, batch).item()), profiled, launches)
+        prof = _profile(lambda: losses.append(step(params, batch).item()), profiled, launches, parts)
     counts = A.launch_counts()  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     print(f"{label}: {tt.num_params(params) / 1e6:.1f}M params, losses {[round(x, 4) for x in losses]}")
@@ -283,7 +391,7 @@ def _train(torch, tt, A, cfg, steps, batch_size, label, profiled=0):
         raise AssertionError(f"{label}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: loss did not fall ({losses[0]} -> {losses[-1]})")
-    return losses, ms[1:], counts, peak, prof
+    return losses, ms[warmup:], counts, peak, prof
 
 
 def main_path_phase(torch, card):
@@ -327,6 +435,98 @@ def main_path_phase(torch, card):
         print(f"defaults: device-busy share of the median step: {prof2[0] / med2:.1%} ({prof2[0]:.1f} ms of kernels)")
     # in-step ms per launch of each flash kernel (empty when not measured)
     return counts, ({n: t / L for n, t in prof[1].items()} if prof else {}), losses[0], med
+
+
+@contextlib.contextmanager
+def _plain_attention(A):
+    """Inside, flash_attention runs its kernels' plain versions on the card's
+    tensors too (the reference runs; no kernel launches)."""
+    on_cuda = A._on_cuda
+    A._on_cuda = lambda t: False
+    try:
+        yield
+    finally:
+        A._on_cuda = on_cuda
+
+
+@contextlib.contextmanager
+def _record_routing(tm, log):
+    """Inside, each top_k_routing call appends its tokens' first choice of
+    expert ([B, T], the argmax of the gate's probabilities) to ``log``."""
+    route = tm.top_k_routing
+
+    def recording(gate_logits, *args, **kw):
+        log.append(gate_logits.softmax(-1).argmax(-1))
+        return route(gate_logits, *args, **kw)
+
+    tm.top_k_routing = recording
+    try:
+        yield
+    finally:
+        tm.top_k_routing = route
+
+
+def moe_train_phase(torch, card):
+    """The flagship widths with 8 experts: the first loss on the kernels
+    against their plain versions, then the timed and profiled train steps;
+    returns (launch counts, first loss, median step ms)."""
+    _phase("moe train")
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.parallel import moe as tm
+
+    cfg = tt.TransformerConfig(**SERVE_CFG, **MOE, dtype=torch.bfloat16, param_dtype=torch.float32, remat=False,
+                               fused_loss=False)
+    B, L, run = MAIN["B"], cfg.n_layers, MOE_TRAIN
+    capacity = max(1, int(cfg.expert_capacity_factor * MAIN["T"] / cfg.num_experts))
+    params = tt.init_params(cfg, seed=0)
+    n_params = tt.num_params(params)
+    n_expert = sum(params["layers"][n].numel() for n in ("wi_e", "wg_e", "wo_e"))
+    batch = _batch(torch, cfg.vocab_size, B)
+    routes, routes_plain = [], []
+    with torch.no_grad():
+        with _record_routing(tm, routes):
+            loss_kernel = tt.loss_fn(params, batch, cfg).item()
+        with _record_routing(tm, routes_plain), _plain_attention(A):
+            loss_plain = tt.loss_fn(params, batch, cfg).item()
+    agree = torch.cat([(a == b).flatten() for a, b in zip(routes, routes_plain)]).float().mean().item()
+    loss_rel = abs(loss_kernel - loss_plain) / abs(loss_plain)
+    del params, batch, routes, routes_plain
+    torch.cuda.empty_cache()
+    print(f"moe config: {n_params / 1e6:.1f}M params ({n_expert / 1e6:.1f}M expert weights), {cfg.num_experts} "
+          f"experts, top-1, capacity {capacity} per (row, expert); first loss on the kernels {loss_kernel:.6f}, on "
+          f"their plain versions {loss_plain:.6f} (relative difference {loss_rel:.2e}, bar {MOE_LOSS_RTOL}); "
+          f"expert choices equal in the two runs: {agree:.4%} of {B * MAIN['T'] * L} (bar {MOE_ROUTING_AGREE:.0%})")
+
+    losses, ms, counts, peak, prof = _train(torch, tt, A, cfg, run["steps"], B, "moe config",
+                                            profiled=run["profiled"], warmup=run["warmup"], parts=True)
+    n_steps = run["warmup"] + run["steps"] + run["profiled"]
+    want = {n: n_steps * L for n in KERNELS}
+    med = sorted(ms)[len(ms) // 2]
+    print(f"launches over {n_steps} steps: {counts} (expected {want})")
+    print(f"moe config on {card}: step {med:.1f} ms median of {run['steps']} (min {min(ms):.1f}, max {max(ms):.1f}), "
+          f"{B * MAIN['T'] / med * 1e3:.0f} tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"first loss {losses[0]:.6f} (the forward's {loss_kernel:.6f})")
+    failures = []
+    if counts != want:
+        failures.append(f"launched {counts}, not {L} per step")
+    if not loss_rel <= MOE_LOSS_RTOL:
+        failures.append(f"first loss on the kernels {loss_kernel} is not the plain versions' {loss_plain}")
+    if not agree >= MOE_ROUTING_AGREE:
+        failures.append(f"only {agree:.2%} of expert choices agree with the plain run")
+    if not abs(losses[0] - loss_kernel) <= TRAINER_LOSS_RTOL * abs(loss_kernel):
+        failures.append(f"the train step's first loss {losses[0]} is not the forward's {loss_kernel}")
+    res = {"params": n_params, "expert_params": n_expert, "capacity": capacity, "step_ms_median": med,
+           "tokens_per_s": B * MAIN["T"] / med * 1e3, "peak_memory_gib": peak / 2**30, "launches": counts,
+           "first_loss": losses[0], "first_loss_plain": loss_plain, "routing_agreement": agree}
+    if prof is not None:
+        res.update(device_ms_per_step=prof[0], device_busy_share=prof[0] / med, device_ms_by_kind=prof[2],
+                   moe_parts_ms=prof[3], layer_slice_grad_ms=prof[4])
+        print(f"device-busy share of the median step: {prof[0] / med:.1%} ({prof[0]:.1f} ms of kernels)")
+    print("moe train: " + json.dumps(res))
+    if failures:
+        raise AssertionError("moe train: " + "; ".join(failures))
+    return counts, losses[0], med
 
 
 def _time_ms(torch, fn, iters):
@@ -430,9 +630,16 @@ def _kinds(us: dict, per: float) -> dict:
     return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
 
 
+def _lossless(cfg):
+    """cfg whose forward routes as inference does: every token gets an
+    expert slot (capacity factor = the number of experts)."""
+    return dataclasses.replace(cfg, expert_capacity_factor=float(cfg.num_experts)) if cfg.num_experts else cfg
+
+
 def serve_functions(torch, tt, tg, A, cfg, params, device="cuda"):
-    """bf16 function checks: ragged prefill against forward per row, and the
-    paged decode chunk against the dense one on the same cache contents."""
+    """Function checks in cfg's dtype: ragged prefill against forward per
+    row, and the paged decode chunk against the dense one on the same cache
+    contents."""
     rng = np.random.default_rng(0)
     B, T, q, bs = 4, 512, 8, 16
     lens = rng.integers(64, T + 1, B)
@@ -442,7 +649,7 @@ def serve_functions(torch, tt, tg, A, cfg, params, device="cuda"):
     failures, worst = [], {}
     with torch.no_grad():
         for b in range(B):
-            ref = tt.forward(params, tokens[b : b + 1, : lens[b]], cfg)[0][0, -1]
+            ref = tt.forward(params, tokens[b : b + 1, : lens[b]], _lossless(cfg))[0][0, -1]
             m = A.mismatch(logits[b], ref)
             failures += [f"prefill row {b} (length {lens[b]}): {x}" for x in A.over_tolerance(m, cfg.dtype)]
             worst = {k: max(worst.get(k, 0.0), v) for k, v in m.items()}
@@ -536,14 +743,15 @@ def _record_ticks(eng, log, step_log):
     eng._decode_tick, eng._decode_fn = timed, timed_step
 
 
-def serve_traffic(torch, A, LLMEngine, cfg, params, card, device="cuda"):
-    """Closed-loop streams over the engine at the flagship config, then (on
-    the card) profiled decode ticks; returns the numbers it prints."""
+def serve_traffic(torch, A, LLMEngine, cfg, params, card, device="cuda", requests=TRAFFIC["requests"]):
+    """Closed-loop streams over the engine at the flagship config until
+    `requests` finish, then (on the card) profiled decode ticks; returns the
+    numbers it prints."""
     tr = TRAFFIC
     rng = np.random.default_rng(2)
     system = rng.integers(0, cfg.vocab_size, tr["prefix"]).tolist()
     specs = []
-    for i in range(tr["requests"]):
+    for i in range(requests):
         suffix = rng.integers(0, cfg.vocab_size, rng.integers(tr["suffix"][0], tr["suffix"][1] + 1)).tolist()
         new = int(np.clip(rng.geometric(1 / tr["mean_new"]), *tr["new"]))
         sampled = i % tr["sampled_every"] == tr["sampled_every"] - 1
@@ -687,44 +895,57 @@ def _profile_decode(torch, LLMEngine, cfg, params, specs):
 def serve_check(torch, tt, cfg, params, done, device="cuda"):
     """Teacher-forces every greedy request's prompt + emitted tokens through
     forward: each emitted token's logit must lie within SERVE_LOGIT_BAR of
-    its row's maximum."""
-    worst, agree, total, over = 0.0, 0, 0, []
+    its row's maximum; under experts, the share of tokens beyond it must not
+    pass MOE_SERVE_BEYOND."""
+    worst, agree, total, over, beyond = 0.0, 0, 0, [], 0
     with torch.no_grad():
         for req, toks in done:
             if req.temperature > 0:
                 continue
             P = len(req.prompt)
             seq = torch.tensor([req.prompt + toks[:-1]], device=device)
-            logits = tt.forward(params, seq, cfg)[0][0, P - 1 :]  # row j predicts toks[j]
+            logits = tt.forward(params, seq, _lossless(cfg))[0][0, P - 1 :]  # row j predicts toks[j]
             emitted = torch.tensor(toks, device=device)
             short = logits.max(-1).values - logits[torch.arange(len(toks), device=device), emitted]
             worst = max(worst, short.max().item())
             agree += (logits.argmax(-1) == emitted).sum().item()
             total += len(toks)
+            beyond += (short > SERVE_LOGIT_BAR).sum().item()
             if short.max().item() > SERVE_LOGIT_BAR:
                 over.append(f"{req.id}: {short.max().item():.3f} at token {short.argmax().item()}")
             logit_std = logits.std().item()
     print(f"teacher-forced check: {total} greedy tokens, {agree / total:.2%} are forward's argmax; "
-          f"largest shortfall from the row maximum {worst:.4f} (bar {SERVE_LOGIT_BAR}; logits' std ~{logit_std:.2f})")
-    if over:
+          f"largest shortfall from the row maximum {worst:.4f} (bar {SERVE_LOGIT_BAR}; logits' std ~{logit_std:.2f}); "
+          f"{beyond} tokens ({beyond / total:.2%}) beyond the bar")
+    if cfg.num_experts:
+        if beyond > MOE_SERVE_BEYOND * total:
+            raise AssertionError(f"{beyond} of {total} emitted tokens beyond the bar (at most {MOE_SERVE_BEYOND:.0%})")
+    elif over:
         raise AssertionError("emitted tokens beyond the bar: " + "; ".join(over))
-    return {"greedy_tokens": total, "argmax_share": agree / total, "max_shortfall": worst}
+    return {"greedy_tokens": total, "argmax_share": agree / total, "max_shortfall": worst,
+            "beyond_bar_share": beyond / total}
 
 
-def serve_phase(torch, card):
-    _phase("serve")
+def serve_phase(torch, card, moe=False):
+    """The serving path at the flagship config, or (``moe``) at the moe train
+    phase's: function checks (bf16; f32 under experts), the f32 engine's
+    exactness, bf16 traffic and its teacher-forced check."""
+    label = "moe serve" if moe else "serve"
+    _phase(label)
     from ray_tpu_torch.models import generate as tg
     from ray_tpu_torch.models import transformer as tt
     from ray_tpu_torch.ops import attention as A
     from ray_tpu_torch.serve.llm import LLMEngine
 
-    cfg = tt.TransformerConfig(**SERVE_CFG, dtype=torch.bfloat16, param_dtype=torch.float32, remat=False)
+    cfg = tt.TransformerConfig(**SERVE_CFG, **(MOE if moe else {}), dtype=torch.bfloat16,
+                               param_dtype=torch.float32, remat=False)
     params = tt.init_params(cfg, seed=0)
-    serve_functions(torch, tt, tg, A, cfg, params)
+    serve_functions(torch, tt, tg, A, dataclasses.replace(cfg, dtype=torch.float32) if moe else cfg, params)
     serve_engine_exact(torch, tt, tg, LLMEngine, cfg)
-    res, done = serve_traffic(torch, A, LLMEngine, cfg, params, card)
+    res, done = serve_traffic(torch, A, LLMEngine, cfg, params, card,
+                              requests=MOE_TRAFFIC_REQUESTS if moe else TRAFFIC["requests"])
     res.update(serve_check(torch, tt, cfg, params, done))
-    print("serve: " + json.dumps(res))
+    print(f"{label}: " + json.dumps(res))
     del params
     torch.cuda.empty_cache()
     return res
@@ -743,9 +964,10 @@ def _alive(pid: int) -> bool:
         return False
 
 
-def trainer_phase(torch, card, main_first_loss, main_step_ms):
-    """The main path's train step in a GPU worker actor, through the port's
-    init() and TorchTrainer; returns the worker's launch counts."""
+def trainer_phase(torch, card, main_first_loss, main_step_ms, moe_first_loss):
+    """The main path's train step, then the moe train phase's, each in a GPU
+    worker actor through the port's init() and TorchTrainer, in one cluster;
+    returns the two workers' launch counts."""
     _phase("trainer")
     import ray_tpu_torch as rt
     from ray_tpu_torch.air.config import RunConfig, ScalingConfig
@@ -753,87 +975,208 @@ def trainer_phase(torch, card, main_first_loss, main_step_ms):
     from ray_tpu_torch.train.flagship_loop import train_loop
     from ray_tpu_torch.train.torch import TorchTrainer
 
-    config = dict(
-        model=dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8, d_ff=2816,
-                   max_seq_len=1024, remat=False, fused_loss=False, scan_unroll=8),
-        dtype="bfloat16", batch=MAIN["B"], seq=MAIN["T"], param_seed=0, batch_seed=1, **TRAINER,
-    )
+    model = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8, d_ff=2816,
+                 max_seq_len=1024, remat=False, fused_loss=False, scan_unroll=8)
+    common = dict(dtype="bfloat16", batch=MAIN["B"], seq=MAIN["T"], param_seed=0, batch_seed=1)
+    runs = [("trainer", dict(model=model, **common, **TRAINER), main_first_loss, main_step_ms),
+            ("moe trainer", dict(model=dict(model, **MOE), **common, **TRAINER_MOE), moe_first_loss, None)]
     storage = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
-    A.reset_launch_counts()
     t0 = time.time()
     rt.init(num_cpus=4, num_gpus=1)
+    results, pids = [], set()
     try:
         print(f"init: {time.time() - t0:.2f} s; cluster resources {rt.cluster_resources()}")
-        result = TorchTrainer(
-            train_loop, train_loop_config=config,
-            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
-            run_config=RunConfig(storage_path=storage),
-        ).fit()
-        # The raylet's workers and, whether or not it is still listed, the
-        # process the loop reported it ran in.
-        pids = sorted({w.pid for w in rt._global_node.raylet.workers.values() if w.pid} | {result.metrics["pid"]})
+        for _, config, _, _ in runs:
+            A.reset_launch_counts()
+            t_fit = time.time()
+            result = TorchTrainer(
+                train_loop, train_loop_config=config,
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                run_config=RunConfig(storage_path=storage),
+            ).fit()
+            results.append((result.metrics, t_fit, A.launch_counts()))
+            # The raylet's workers and, whether or not it is still listed, the
+            # process the loop reported it ran in.
+            pids |= {w.pid for w in rt._global_node.raylet.workers.values() if w.pid} | {result.metrics["pid"]}
     finally:
         rt.shutdown()
         shutil.rmtree(storage, ignore_errors=True)
     deadline = time.monotonic() + 30
     while any(_alive(p) for p in pids) and time.monotonic() < deadline:
         time.sleep(0.1)
-    left = [p for p in pids if _alive(p)]
-    driver_counts = A.launch_counts()
-    m = result.metrics
+    left = sorted(p for p in pids if _alive(p))
+    print(f"worker pids {sorted(pids)}, {len(left)} left after shutdown()")
+    failures = [f"worker processes {left} outlived shutdown()"] if left else []
+    counts_out = []
+    for n, ((label, config, first_loss, step_ms), (m, t_fit, driver_counts)) in enumerate(zip(runs, results)):
+        start, since = (t0, "init()") if n == 0 else (t_fit, "fit()")
+        failures += _trainer_report(torch, card, label, config, m, first_loss, step_ms, driver_counts, start, since)
+        counts_out.append(m["launches"])
+    if failures:
+        raise AssertionError("trainer phase: " + "; ".join(failures))
+    return counts_out
+
+
+def _trainer_report(torch, card, label, config, m, first_loss, step_ms, driver_counts, start, since):
+    """Prints one trainer run's lines and its JSON line; returns its failures."""
     steps, counts, L = m["steps"], m["launches"], config["model"]["n_layers"]
     tok = MAIN["B"] * MAIN["T"]
     raw_ms = tok / m["tokens_per_sec_raw"] * 1e3
-    n_prof = TRAINER["profile_steps"]
-    device_ms = sum(m["device_us"].values()) / 1e3 / n_prof
-    flash_ms = {n: sum(t for key, t in m["device_us"].items() if n in key) / 1e3 / n_prof for n in KERNELS}
-    rel = abs(m["first_loss"] - main_first_loss) / abs(main_first_loss)
-    print(f"worker device: {m['device_name']} (driver's card: {torch.cuda.get_device_name(0)}); the loop ran "
-          f"in pid {m['pid']}; worker pids {pids}, {len(left)} left after shutdown()")
-    print(f"worker launches over {steps} steps: {counts} (expected {steps * L} each); "
+    n_prof = config["profile_steps"]
+    device_ms = sum(m["device_us"].values()) / 1e3 / n_prof if n_prof else 0.0
+    flash_ms = {n: sum(t for key, t in m["device_us"].items() if n in key) / 1e3 / n_prof for n in KERNELS} \
+        if n_prof else {}
+    rel = abs(m["first_loss"] - first_loss) / abs(first_loss)
+    print(f"{label}: worker device {m['device_name']} (driver's card: {torch.cuda.get_device_name(0)}); the loop "
+          f"ran in pid {m['pid']}")
+    print(f"{label}: worker launches over {steps} steps: {counts} (expected {steps * L} each); "
           f"driver launches meanwhile: {driver_counts}")
-    print(f"first loss: worker {m['first_loss']:.6f}, main path {main_first_loss:.6f} "
+    print(f"{label}: first loss: worker {m['first_loss']:.6f}, in-process {first_loss:.6f} "
           f"(relative difference {rel:.2e}, bar {TRAINER_LOSS_RTOL})")
-    print(f"trainer on {card}: framework {m['tokens_per_sec_framework']:.0f} tokens/s, raw "
+    print(f"{label} on {card}: framework {m['tokens_per_sec_framework']:.0f} tokens/s, raw "
           f"{m['tokens_per_sec_raw']:.0f} tokens/s, ratio {m['ratio']:.4f} (raw time / framework time; "
-          f"{TRAINER['rounds']} ABBA rounds of {TRAINER['chunk']}-step chunks); worker step "
-          f"{tok / m['tokens_per_sec_raw'] * 1e3:.1f} ms raw, {tok / m['tokens_per_sec_framework'] * 1e3:.1f} ms "
-          f"framework (main path's median {main_step_ms:.1f} ms); worker max_memory_allocated "
-          f"{m['peak_memory_bytes'] / 2**30:.2f} GiB; init() to first report {m['first_report_time'] - t0:.2f} s "
-          f"(init() to the loop's start in the worker {m['start_time'] - t0:.2f} s, then set-up and the first "
-          f"step {m['first_report_time'] - m['start_time']:.2f} s)")
+          f"{config['rounds']} ABBA rounds of {config['chunk']}-step chunks); worker step "
+          f"{raw_ms:.1f} ms raw, {tok / m['tokens_per_sec_framework'] * 1e3:.1f} ms framework"
+          + (f" (in-process median {step_ms:.1f} ms)" if step_ms else "")
+          + f"; worker max_memory_allocated {m['peak_memory_bytes'] / 2**30:.2f} GiB; {since} to first report "
+          f"{m['first_report_time'] - start:.2f} s ({since} to the loop's start in the worker "
+          f"{m['start_time'] - start:.2f} s, then set-up and the first step "
+          f"{m['first_report_time'] - m['start_time']:.2f} s)")
     if device_ms > 0:
-        print(f"worker, {n_prof} steps under torch.profiler: device time {device_ms:.1f} ms per step, "
+        print(f"{label}: worker, {n_prof} steps under torch.profiler: device time {device_ms:.1f} ms per step, "
               f"device busy {device_ms / raw_ms:.1%} of the raw step; by kind: "
               + ", ".join(f"{g} {ms:.1f} ms" for g, ms in _kinds(m["device_us"], n_prof).items())
               + "; flash kernels, ms per step: " + ", ".join(f"{n} {ms:.3f}" for n, ms in flash_ms.items()))
     else:
-        print("worker device time: not measured (the profiler recorded no device time)")
+        print(f"{label}: worker device time: not measured" + (" (no step was profiled)" if not n_prof else
+                                                               " (the profiler recorded no device time)"))
     failures = []
     if m["device_name"] != torch.cuda.get_device_name(0):
-        failures.append(f"the worker ran on {m['device_name']!r}")
+        failures.append(f"{label}: the worker ran on {m['device_name']!r}")
     if counts != {n: steps * L for n in KERNELS}:
-        failures.append(f"the worker launched {counts}, not {L} per step")
+        failures.append(f"{label}: the worker launched {counts}, not {L} per step")
     if not rel <= TRAINER_LOSS_RTOL:
-        failures.append(f"first loss {m['first_loss']} is not the main path's {main_first_loss}")
+        failures.append(f"{label}: first loss {m['first_loss']} is not the in-process {first_loss}")
     if m["pid"] == os.getpid():
-        failures.append("the loop ran in the driver's process, not in a worker")
-    if left:
-        failures.append(f"worker processes {left} outlived shutdown()")
+        failures.append(f"{label}: the loop ran in the driver's process, not in a worker")
     if any(driver_counts.values()):
-        failures.append(f"the driver launched kernels during the trainer run: {driver_counts}")
-    if failures:
-        raise AssertionError("trainer phase: " + "; ".join(failures))
-    print("trainer: " + json.dumps({
+        failures.append(f"{label}: the driver launched kernels during the run: {driver_counts}")
+    print(f"{label}: " + json.dumps({
         "device_name": m["device_name"], "steps": steps, "launches": counts, "first_loss": m["first_loss"],
-        "main_first_loss": main_first_loss, "tokens_per_sec_framework": m["tokens_per_sec_framework"],
+        "in_process_first_loss": first_loss, "tokens_per_sec_framework": m["tokens_per_sec_framework"],
         "tokens_per_sec_raw": m["tokens_per_sec_raw"], "ratio": m["ratio"],
         "peak_memory_gib": m["peak_memory_bytes"] / 2**30,
-        "init_to_first_report_s": m["first_report_time"] - t0, "init_to_loop_start_s": m["start_time"] - t0,
+        f"{since[:-2]}_to_first_report_s": m["first_report_time"] - start,
+        f"{since[:-2]}_to_loop_start_s": m["start_time"] - start,
         "worker_device_ms_per_step": device_ms or None,
         "worker_device_busy_share": device_ms / raw_ms if device_ms else None,
     }))
-    return counts
+    return failures
+
+
+def zoo_phase(torch, card, errs):
+    """ViT-B/16 and ResNet-50 inference, the forward kernel at ViT's shape
+    against its plain version and SDPA, and MNIST-MLP train steps; returns
+    the kernels line's row for the forward kernel at ViT's shape."""
+    _phase("zoo")
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.models import mlp as tmlp
+    from ray_tpu_torch.models import resnet as tres
+    from ray_tpu_torch.models import vit as tvit
+    from ray_tpu_torch.ops import attention as A
+
+    B, S, n = ZOO["batch"], ZOO["image"], ZOO["batches"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.randn(B, S, S, 3, generator=g, device="cuda")
+
+    def images_per_s(model):
+        """n batches after a warm-up one, host clock to a synchronize."""
+        model(images)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = model(images)
+        torch.cuda.synchronize()
+        return out, B * n / (time.perf_counter() - t0)
+
+    failures = []
+    torch.manual_seed(0)
+    vit = tvit.ViT_B16(device="cuda").eval()
+    with torch.no_grad():
+        with _plain_attention(A):
+            ref = vit(images)
+        A.reset_launch_counts()  # the ViT path starts here ...
+        logits, vit_rate = images_per_s(vit)
+        vit_counts = A.launch_counts()  # ... and ends here
+    m = A.mismatch(logits, ref)
+    want = {"flash_fwd": (n + 1) * len(vit.blocks), "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    print(f"ViT-B/16 on {card}: batch {B} at {S}^2, bf16: {vit_rate:.1f} images/s; launches over {n + 1} batches "
+          f"{vit_counts} (expected {want}); logits against the same model on the plain attention: "
+          + " ".join(f"{k}={v:.2e}" for k, v in m.items()) + f" (bar rel_l2 {VIT_LOGIT_RTOL})")
+    if vit_counts != want:
+        failures.append(f"ViT launched {vit_counts}, expected {want}")
+    if not m["rel_l2"] <= VIT_LOGIT_RTOL or logits.shape != (B, 1000):
+        failures.append(f"ViT logits {tuple(logits.shape)} off the plain attention's: {m}")
+    del vit, ref, logits
+
+    # The forward kernel at ViT's shape, as the inference path launches it (no LSE).
+    Bv, T, H, D = VIT["B"], VIT["T"], VIT["H"], VIT["D"]
+    q, k, v, _ = _inputs(torch, 200, torch.bfloat16, Bv, T, T, H, D)
+    scale = D**-0.5
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with torch.no_grad():
+        ms = _time_ms(torch, lambda: A.flash_fwd_cuda(q, k, v, False, scale, 0, save_lse=False), 50)
+        plain_ms = _time_ms(torch, lambda: A._plain_flash_fwd(q, k, v, False, scale, 0), 10)
+        lib_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 50)
+    flops, nbytes = 4 * D * Bv * H * T * T, 4 * Bv * T * H * D * 2  # QK^T, PV | q k v -> out
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = {"name": "flash_fwd_vit", "kernel": "flash_fwd", "route": "cuda", "design": DESIGNS["flash_fwd"],
+           "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu", "replaces": "ray_tpu/ops/attention.py:57",
+           "shape": f"bf16 B{Bv} T{T} H{H} D{D} non-causal, no LSE", "launches": vit_counts["flash_fwd"],
+           "max_abs_err": max(e["max_abs"] for e in errs["flash_fwd_vit"]),
+           "rel_l2_err": max(e["rel_l2"] for e in errs["flash_fwd_vit"]), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": lib_ms, "plain_covers": "out+lse", "library_covers": "out"}
+    print(f"flash_fwd at ViT's shape ({row['shape']}): {ms:.4f} ms (bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; {row['bound_ms'] / ms:.1%} of bound), "
+          f"plain {plain_ms:.3f} ms, library (SDPA) {lib_ms:.4f} ms")
+    del q, k, v, qt, kt, vt
+
+    torch.manual_seed(0)
+    resnet = tres.ResNet50(device="cuda").eval()
+    with torch.no_grad():
+        logits, resnet_rate = images_per_s(resnet)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"ResNet-50 on {card}: batch {B} at {S}^2, bf16 convolutions, eval: {resnet_rate:.1f} images/s; "
+          f"logits {tuple(logits.shape)}, finite: {finite}")
+    if not finite or logits.shape != (B, 1000):
+        failures.append(f"ResNet-50 logits {tuple(logits.shape)}, finite: {finite}")
+    del resnet, logits, images
+
+    params = tmlp.init_mlp(seed=0)
+    opt = torch.optim.AdamW(params.values(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    batch = {"x": torch.randn(ZOO["mlp_batch"], 784, generator=g, device="cuda"),
+             "y": torch.randint(0, 10, (ZOO["mlp_batch"],), generator=g, device="cuda")}
+    losses = []
+    for _ in range(ZOO["mlp_steps"]):
+        opt.zero_grad(set_to_none=True)
+        nll, acc = tmlp.mlp_loss(params, batch)
+        nll.backward()
+        opt.step()
+        losses.append(nll.item())
+    print(f"MNIST MLP: {ZOO['mlp_steps']} AdamW steps on one batch of {ZOO['mlp_batch']}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, accuracy {acc.item():.3f}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        failures.append(f"MLP loss did not fall: {losses}")
+    print("zoo: " + json.dumps({
+        "vit_b16_images_per_s": vit_rate, "vit_launches": vit_counts, "vit_logits_vs_plain": m,
+        "vit_kernel_ms": ms, "vit_kernel_plain_ms": plain_ms, "vit_kernel_sdpa_ms": lib_ms,
+        "vit_kernel_bound_ms": row["bound_ms"], "resnet50_images_per_s": resnet_rate,
+        "mlp_losses": [losses[0], losses[-1]]}))
+    if failures:
+        raise AssertionError("zoo: " + "; ".join(failures))
+    return row
 
 
 def main() -> int:
@@ -842,15 +1185,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     smi, card = device_phase(torch)
     info = build_phase()
     errs = kernels_phase(torch)
     counts, in_step, first_loss, step_ms = main_path_phase(torch, smi)
     kernels = timings_phase(torch, smi, counts, errs, info, in_step)
     serve_phase(torch, smi)
-    worker_counts = trainer_phase(torch, smi, first_loss, step_ms)
+    moe_counts, moe_first_loss, _ = moe_train_phase(torch, smi)
+    serve_phase(torch, smi, moe=True)
+    worker_counts, moe_worker_counts = trainer_phase(torch, smi, first_loss, step_ms, moe_first_loss)
     for row in kernels:
         row["worker_launches"] = worker_counts[row["name"]]
+        row["moe_launches"] = moe_counts[row["name"]]
+        row["moe_worker_launches"] = moe_worker_counts[row["name"]]
+    kernels.append(zoo_phase(torch, smi, errs))
+    print(f"script wall time {time.perf_counter() - t0:.1f} s (from the device phase; imports before it)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -24,8 +24,12 @@ JAX package has ``lax.scan`` and ``lax.while_loop`` under ``jit``.
 Randomness comes from a ``torch.Generator`` on the parameters' device in
 place of a JAX ``key``: ``key`` is a seed, a generator, or None (seed 0).
 
-Not in this package yet: mixture-of-experts decode (``num_experts > 0``
-raises) and tensor-parallel parameters.
+A mixture-of-experts model (``num_experts > 0``) routes LOSSLESSLY here:
+capacity equals the tokens fed per row, so every token gets a slot, routing
+is per token and independent of padding, ragged rows behave as solo rows,
+and prefill agrees with one-token decode. Training's capacity drops are an
+efficiency trade that inference does not make. Not in this package yet:
+tensor-parallel parameters.
 """
 
 from __future__ import annotations
@@ -35,9 +39,9 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
-    _check_supported,
     _device,
     _head,
+    _moe_mlp,
     _rms_norm,
     _rope_apply,
     _rope_tables,
@@ -45,7 +49,6 @@ from ray_tpu_torch.models.transformer import (
 
 
 def _zeros_cache(cfg: TransformerConfig, shape, device) -> dict:
-    _check_supported(cfg)
     dev = _device(device)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
@@ -88,9 +91,10 @@ def _project_qkv(lp, x, rope, cfg: TransformerConfig):
 
 
 def _mlp(lp, x, cfg: TransformerConfig):
-    if cfg.num_experts > 0:
-        raise NotImplementedError("mixture-of-experts decode (num_experts > 0) is not ported yet")
     h = _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.num_experts > 0:
+        # capacity_factor E gives capacity T: lossless. The aux loss is unused.
+        return x + _moe_mlp(lp, h, float(cfg.num_experts))[0]
     gate = F.silu(h @ lp["wg"].to(h.dtype))
     up = h @ lp["wi"].to(h.dtype)
     return x + (gate * up) @ lp["wo_mlp"].to(h.dtype)

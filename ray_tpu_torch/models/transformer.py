@@ -8,12 +8,14 @@ weights (``params_from_jax``) gives both packages the same function.
 
 Eager PyTorch on tensors: the layer loop is a Python loop over the stack,
 ``remat`` is ``torch.utils.checkpoint`` per layer, and attention goes through
-the port's CUDA flash kernels (``ray_tpu_torch.ops.attention``). Entry points
-take ``device="cuda"`` by default and raise when there is no card, unless the
-caller passes ``device="cpu"``.
+the port's CUDA flash kernels (``ray_tpu_torch.ops.attention``). With
+``num_experts > 0`` the MLP is a top-1 mixture of experts
+(``ray_tpu_torch.parallel.moe``), and the loss adds 0.01 times its aux loss
+summed over layers. Entry points take ``device="cuda"`` by default and raise
+when there is no card, unless the caller passes ``device="cpu"``.
 
-Not in this package yet: mixture-of-experts (``num_experts > 0``), ring and
-Ulysses attention (``attn_impl`` other than ``"auto"``, or a ``mesh``).
+Not in this package yet: ring and Ulysses attention (``attn_impl`` other
+than ``"auto"``) and meshes (``mesh``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.losses import fused_lm_loss
+from ray_tpu_torch.parallel.moe import moe_layer, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +46,7 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16  # activations
     param_dtype: Any = torch.float32  # stored weights
-    num_experts: int = 0  # only 0 (dense) is ported
+    num_experts: int = 0  # 0: dense SwiGLU MLP; > 0: top-1 mixture of experts
     expert_capacity_factor: float = 1.25
     remat: bool = True  # recompute each layer in the backward (torch.utils.checkpoint)
     tie_embeddings: bool = False
@@ -67,9 +70,7 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _check_supported(cfg: TransformerConfig, mesh=None, attn_impl: str = "auto") -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError("mixture-of-experts (num_experts > 0) is not ported yet")
+def _check_supported(mesh=None, attn_impl: str = "auto") -> None:
     if mesh is not None or attn_impl != "auto":
         raise NotImplementedError("meshes and ring/Ulysses attention are not ported yet")
 
@@ -87,12 +88,16 @@ def _param_shapes(cfg: TransformerConfig) -> dict:
             "wv": (L, D, KV * Dh),
             "wo": (L, H * Dh, D),
             "mlp_norm": (L, D),
-            "wi": (L, D, Fd),
-            "wg": (L, D, Fd),
-            "wo_mlp": (L, Fd, D),
         },
         "norm_f": (D,),
     }
+    if cfg.num_experts > 0:
+        E = cfg.num_experts
+        # wg_e is kept for the JAX package's layout; no path reads it.
+        shapes["layers"].update({"gate": (L, D, E), "wi_e": (L, E, D, Fd), "wg_e": (L, E, D, Fd),
+                                 "wo_e": (L, E, Fd, D)})
+    else:
+        shapes["layers"].update({"wi": (L, D, Fd), "wg": (L, D, Fd), "wo_mlp": (L, Fd, D)})
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, V)
     return shapes
@@ -102,14 +107,15 @@ def init_params(cfg: TransformerConfig, seed: int = 0, *, device="cuda") -> dict
     """Random parameters from ``seed``, in the JAX package's layout and
     scales (norm weights 1, projections N(0, 1) scaled as there). The numbers
     differ from ``jax.random``'s; use ``params_from_jax`` to share weights."""
-    _check_supported(cfg)
     dev = _device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, Fd, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     s = D**-0.5
+    out_scale = Fd**-0.5 * (2 * L) ** -0.5
     scales = {
         "embed": 1.0, "wq": s, "wk": s, "wv": s, "wo": s * (2 * L) ** -0.5,
-        "wi": s, "wg": s, "wo_mlp": Fd**-0.5 * (2 * L) ** -0.5, "lm_head": s,
+        "wi": s, "wg": s, "wo_mlp": out_scale, "lm_head": s,
+        "gate": s, "wi_e": s, "wg_e": s, "wo_e": out_scale,
     }
 
     def make(name, shape):
@@ -128,7 +134,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0, *, device="cuda") -> dict
 def params_from_jax(np_params: dict, cfg: TransformerConfig, *, device="cuda") -> dict:
     """The port's parameters from the JAX package's ``init_params`` pytree,
     given as numpy arrays (``jax.tree.map(np.asarray, params)``)."""
-    _check_supported(cfg)
     dev = _device(device)
     shapes = _param_shapes(cfg)
 
@@ -139,7 +144,7 @@ def params_from_jax(np_params: dict, cfg: TransformerConfig, *, device="cuda") -
         return torch.tensor(arr, dtype=cfg.param_dtype, device=dev).requires_grad_()
 
     if set(np_params) != set(shapes) or set(np_params["layers"]) != set(shapes["layers"]):
-        raise ValueError(f"parameter names {sorted(np_params)} do not match the dense layout of cfg")
+        raise ValueError(f"parameter names {sorted(np_params)} do not match the layout of cfg")
     params = {n: convert(n, np_params[n], sh) for n, sh in shapes.items() if n != "layers"}
     params["layers"] = {n: convert(n, np_params["layers"][n], sh) for n, sh in shapes["layers"].items()}
     return params
@@ -203,11 +208,25 @@ def _attention_block(lp, x, cos, sin, cfg: TransformerConfig):
     return x + o.reshape(B, T, H * Dh) @ lp["wo"].to(o.dtype)
 
 
+def _moe_mlp(lp, h, capacity_factor: float):
+    """The one expert call of the training block and of KV-cache decode
+    (they differ only in capacity: training drops tokens past it, inference
+    runs lossless). Returns (out, aux)."""
+    with span("moe/weight_casts"):
+        params = {"gate": lp["gate"].to(h.dtype), "wi": lp["wi_e"].to(h.dtype), "wo": lp["wo_e"].to(h.dtype)}
+    return moe_layer(params, h, capacity_factor=capacity_factor)
+
+
 def _mlp_block(lp, x, cfg: TransformerConfig):
+    """(x + MLP(norm(x)), the layer's moe aux: 0.0 for the dense MLP)."""
     h = _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.num_experts > 0:
+        # The experts are single GELU MLPs; wg_e takes no part.
+        out, aux = _moe_mlp(lp, h, cfg.expert_capacity_factor)
+        return x + out, aux
     gate = F.silu(h @ lp["wg"].to(h.dtype))
     up = h @ lp["wi"].to(h.dtype)
-    return x + (gate * up) @ lp["wo_mlp"].to(h.dtype)
+    return x + (gate * up) @ lp["wo_mlp"].to(h.dtype), 0.0
 
 
 def _layer(lp, x, cos, sin, cfg: TransformerConfig):
@@ -215,19 +234,22 @@ def _layer(lp, x, cos, sin, cfg: TransformerConfig):
 
 
 def forward_hidden(params: dict, tokens, cfg: TransformerConfig, mesh=None, attn_impl: str = "auto"):
-    """tokens [B, T] integer -> (final hidden [B, T, D], moe aux = 0.0)."""
-    _check_supported(cfg, mesh, attn_impl)
+    """tokens [B, T] integer -> (final hidden [B, T, D], moe aux summed over
+    layers: an f32 scalar, or 0.0 for the dense MLP)."""
+    _check_supported(mesh, attn_impl)
     T = tokens.shape[1]
     x = params["embed"].to(cfg.dtype)[tokens]
     cos, sin = _rope_tables(torch.arange(T, device=x.device)[None], cfg.head_dim, cfg.rope_theta)
     layers = params["layers"]
+    aux = 0.0
     for i in range(cfg.n_layers):
         lp = {n: w[i] for n, w in layers.items()}
         if cfg.remat:
-            x = checkpoint(_layer, lp, x, cos, sin, cfg, use_reentrant=False)
+            x, a = checkpoint(_layer, lp, x, cos, sin, cfg, use_reentrant=False)
         else:
-            x = _layer(lp, x, cos, sin, cfg)
-    return _rms_norm(x, params["norm_f"], cfg.norm_eps), 0.0
+            x, a = _layer(lp, x, cos, sin, cfg)
+        aux = aux + a
+    return _rms_norm(x, params["norm_f"], cfg.norm_eps), aux
 
 
 def _head(params):
@@ -260,15 +282,21 @@ def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer, me
     Unlike the JAX step, which returns new params and optimizer state, this
     one updates both IN PLACE: ``optimizer`` (e.g. ``adamw(params)``) must
     hold the tensors of ``params``. ``batch["tokens"]`` ([B, T+1]) is moved
-    to ``device`` first.
+    to ``device`` first. A leaf the loss does not reach (``wg_e``) gets a
+    zero gradient, as under ``jax.grad``, so the optimizer still steps it
+    (AdamW's weight decay) where torch would skip a leaf without one.
     """
-    _check_supported(cfg, mesh, attn_impl)
+    _check_supported(mesh, attn_impl)
     dev = _device(device)
+    leaves = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(params, batch):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, {"tokens": batch["tokens"].to(dev)}, cfg)
         loss.backward()
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         optimizer.step()
         return loss.detach()
 

@@ -9,7 +9,8 @@ prefix-cache reuse, with per-request token streams.
   cache keys on, and the router affinity hint built from the first block.
 
 Not ported yet: ``LLMDeployment`` (``deployment.py``, which needs the serve
-controller and proxy) and ``kv_transfer.py`` (the object store).
+controller and proxy) and ``kv_transfer.py`` (the p2p and device-object
+planes, ROADMAP A10).
 """
 
 from ray_tpu_torch.serve.llm.engine import LLMEngine, LLMRequest, block_hashes, prefix_route_hint

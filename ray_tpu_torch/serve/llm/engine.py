@@ -215,13 +215,13 @@ class LLMEngine:
             raise ValueError(f"role must be both|prefill|decode, got {role!r}")
         if role != "both":
             raise NotImplementedError(
-                f"role={role!r}: prefill/decode disaggregation (the KV handoff) needs the port's copy of "
-                "the core worker and object store, which does not exist yet"
+                f"role={role!r}: prefill/decode disaggregation (the KV handoff) rides the p2p and "
+                "device-object planes that kv_transfer imports, which are not ported (ROADMAP A10, A5 5e)"
             )
         if cluster_prefix:
             raise NotImplementedError(
-                "cluster_prefix=True: the cluster prefix tier (kv_transfer) needs the port's copy of the "
-                "core worker, GCS KV and object store, which does not exist yet"
+                "cluster_prefix=True: the cluster prefix tier (kv_transfer) rides the p2p and device-object "
+                "planes, which are not ported (ROADMAP A10, A5 5e)"
             )
         self.params = params
         self.cfg = cfg
@@ -293,8 +293,8 @@ class LLMEngine:
         and raises NotImplementedError."""
         if kv_import is not None:
             raise NotImplementedError(
-                "kv_import: the prefill->decode KV handoff needs the port's copy of the object store, "
-                "which does not exist yet"
+                "kv_import: the prefill->decode KV handoff (kv_transfer) rides the p2p and device-object "
+                "planes, which are not ported (ROADMAP A10, A5 5e)"
             )
         tokens = [int(t) for t in tokens]
         if not tokens:

@@ -4,7 +4,8 @@ One set of weights (the JAX ``init_params``, carried over by
 ``params_from_jax``) and one seeded prompt go through both packages, f32 on
 the CPU: ``prefill`` (ragged, with a zero-length row), ``decode_step`` /
 ``decode_chunk`` (aligned and per-row positions, and a write clamped at the
-cache's end), ``prefill_chunked``, ``generate`` and ``speculative_generate``.
+cache's end), ``prefill_chunked``, ``generate`` and ``speculative_generate``;
+and a mixture-of-experts model's decode MLP, greedy and ragged ``generate``.
 
 Tolerances are the JAX package's own (``tests/test_generate.py``): logits
 rtol 2e-4, atol 2e-5; cache rows at written positions 1e-5. Greedy tokens
@@ -58,14 +59,14 @@ class Model:
 
 @pytest.fixture(scope="module")
 def models():
-    """Builds each (kv_heads, tie, window, layers, seed) model once for the module."""
+    """Builds each (kv_heads, tie, window, layers, seed, d_ff, experts) model once for the module."""
     built = {}
 
-    def get(kv_heads=4, tie=False, window=0, n_layers=2, seed=0, d_ff=96):
-        key = (kv_heads, tie, window, n_layers, seed, d_ff)
+    def get(kv_heads=4, tie=False, window=0, n_layers=2, seed=0, d_ff=96, num_experts=0):
+        key = (kv_heads, tie, window, n_layers, seed, d_ff, num_experts)
         if key not in built:
             kw = dict(SMALL, n_kv_heads=kv_heads, tie_embeddings=tie, sliding_window=window,
-                      n_layers=n_layers, d_ff=d_ff)
+                      n_layers=n_layers, d_ff=d_ff, num_experts=num_experts)
             cfg_j = jt.TransformerConfig(dtype=jnp.float32, **kw)
             cfg_t = tt.TransformerConfig(dtype=torch.float32, **kw)
             params_j = jt.init_params(jax.random.PRNGKey(seed), cfg_j)
@@ -414,11 +415,61 @@ def test_inference_builds_no_autograd_graph(models):
 
 
 def test_mixture_of_experts_raises(models):
-    m = models()
-    moe = dataclasses.replace(m.cfg_t, num_experts=4)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tg.init_cache(moe, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tg.init_paged_cache(moe, 4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tg._mlp({}, torch.zeros(1, 1, 64), moe)
+    """The decode path raises on no mixture-of-experts config: the caches
+    build at the dense layout, and the decode MLP routes losslessly
+    (capacity = the tokens fed per row), equal to the JAX package's ``_mlp``
+    on the same layer and rows."""
+    m = models(num_experts=4)
+    cfg = m.cfg_t
+    assert tg.init_cache(cfg, 1, 8, device="cpu")["k"].shape == (2, 1, 8, 4, 16)
+    assert tg.init_paged_cache(cfg, 4, 4, device="cpu")["v"].shape == (2, 4, 4, 4, 16)
+    x = np.random.default_rng(30).standard_normal((3, 5, cfg.d_model)).astype(np.float32)
+    lp_j = jax.tree.map(lambda w: w[0], m.params_j["layers"])
+    lp_t = {n: w[0] for n, w in m.params_t["layers"].items()}
+    want = _jg._mlp(lp_j, jnp.asarray(x), m.cfg_j)
+    with torch.no_grad():
+        got = tg._mlp(lp_t, torch.tensor(x), cfg)
+    np.testing.assert_allclose(_np(got), _np(want), **LOGITS)
+
+
+def _greedy_by_forward(params, prompt, cfg, n_new):
+    """Greedy tokens by re-running the cache-free forward at every step."""
+    seq = torch.tensor(prompt).long()
+    out = []
+    with torch.no_grad():
+        for _ in range(n_new):
+            nxt = tt.forward(params, seq, cfg)[0][:, -1].argmax(-1)
+            out.append(nxt)
+            seq = torch.cat([seq, nxt[:, None]], dim=1)
+    return torch.stack(out, dim=1).numpy()
+
+
+def test_moe_greedy_generate_matches_jax_and_lossless_forward(models):
+    """Mixture-of-experts inference is lossless: generate() under the default
+    capacity factor (1.25) gives the JAX package's tokens and the tokens of
+    a forward whose capacity never drops (tests/test_generate.py's
+    oracle)."""
+    m = models(kv_heads=2, num_experts=4)
+    prompt = _tokens(20, (2, 5))
+    want = _np(jg.generate(m.params_j, jnp.asarray(prompt), m.cfg_j, max_new_tokens=6, temperature=0.0))
+    got = _np(tg.generate(m.params_t, torch.tensor(prompt), m.cfg_t, max_new_tokens=6, temperature=0.0))
+    np.testing.assert_array_equal(got, want)
+    lossless = dataclasses.replace(m.cfg_t, expert_capacity_factor=float(m.cfg_t.num_experts))
+    np.testing.assert_array_equal(got, _greedy_by_forward(m.params_t, prompt, lossless, 6))
+
+
+def test_moe_ragged_prompts_match_jax_and_solo_rows(models):
+    """Padding stays invisible under experts: lossless routing is per token,
+    so a ragged batch's rows equal the JAX package's and each row alone."""
+    m = models(kv_heads=2, num_experts=4)
+    rows = [_tokens(21 + i, (n,)) for i, n in enumerate((2, 6))]
+    padded = np.stack([np.pad(r, (0, 6 - len(r)), constant_values=3) for r in rows])
+    lens = np.array([len(r) for r in rows], np.int32)
+    want = _np(jg.generate(m.params_j, jnp.asarray(padded), m.cfg_j, max_new_tokens=5,
+                           prompt_lens=jnp.asarray(lens)))
+    got = _np(tg.generate(m.params_t, torch.tensor(padded), m.cfg_t, max_new_tokens=5,
+                          prompt_lens=torch.tensor(lens)))
+    np.testing.assert_array_equal(got, want)
+    for i, r in enumerate(rows):
+        solo = _np(tg.generate(m.params_t, torch.tensor(r[None]), m.cfg_t, max_new_tokens=5))[0]
+        np.testing.assert_array_equal(got[i], solo, err_msg=f"row {i}")

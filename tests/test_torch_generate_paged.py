@@ -4,9 +4,10 @@ the JAX package's paged functions.
 The same weights (``params_from_jax``) and seeded tokens, f32 on the CPU:
 chunked prefill through ``paged_decode_chunk`` with a shuffled block table,
 then decode steps; a multi-slot batch with an inactive slot; ``valid_to``
-write routing to the null block; a sliding window. Tolerances are the JAX
-package's own (``tests/test_generate.py``): logits rtol 2e-4, atol 2e-5;
-cache rows at written positions 1e-5. Greedy tokens must be identical.
+write routing to the null block; a sliding window; a mixture-of-experts
+model. Tolerances are the JAX package's own (``tests/test_generate.py``):
+logits rtol 2e-4, atol 2e-5; cache rows at written positions 1e-5. Greedy
+tokens must be identical.
 """
 
 import importlib
@@ -43,19 +44,19 @@ BS = 4  # block size
 
 @pytest.fixture(scope="module")
 def models():
-    """Builds each (kv_heads, window) model once for the module: (JAX cfg,
+    """Builds each (kv_heads, window, experts) model once for the module: (JAX cfg,
     JAX params, port cfg, port params)."""
     built = {}
 
-    def get(kv_heads=2, window=0):
-        if (kv_heads, window) not in built:
-            kw = dict(SMALL, n_kv_heads=kv_heads, sliding_window=window)
+    def get(kv_heads=2, window=0, num_experts=0):
+        if (kv_heads, window, num_experts) not in built:
+            kw = dict(SMALL, n_kv_heads=kv_heads, sliding_window=window, num_experts=num_experts)
             cfg_j = jt.TransformerConfig(dtype=jnp.float32, **kw)
             cfg_t = tt.TransformerConfig(dtype=torch.float32, **kw)
             params_j = jt.init_params(jax.random.PRNGKey(0), cfg_j)
             params_t = tt.params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t, device="cpu")
-            built[kv_heads, window] = (cfg_j, params_j, cfg_t, params_t)
-        return built[kv_heads, window]
+            built[kv_heads, window, num_experts] = (cfg_j, params_j, cfg_t, params_t)
+        return built[kv_heads, window, num_experts]
 
     return get
 
@@ -85,9 +86,11 @@ def _paged_prefill(mod, params, toks, cache, table, cfg, chunk=4):
     return logits[:, (T - 1) % chunk], cache
 
 
-@pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa"])
-def test_paged_greedy_decode_matches_dense_and_jax(models, kv_heads):
-    cfg_j, params_j, cfg_t, params_t = models(kv_heads)
+@pytest.mark.parametrize("kv_heads,num_experts", [(4, 0), (2, 0), (2, 4)], ids=["mha", "gqa", "gqa-moe"])
+def test_paged_greedy_decode_matches_dense_and_jax(models, kv_heads, num_experts):
+    """With experts too: the padded final prefill chunk's rows take expert
+    slots of their own (lossless routing), so paged equals dense."""
+    cfg_j, params_j, cfg_t, params_t = models(kv_heads, num_experts=num_experts)
     toks, table, n_new = _tokens(1, 7), [5, 2, 7, 1], 6  # fragmented, out of order, never block 0
     pj = jp.init_paged_cache(cfg_j, num_blocks=9, block_size=BS)
     pt = tg.init_paged_cache(cfg_t, num_blocks=9, block_size=BS, device="cpu")

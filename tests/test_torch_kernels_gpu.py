@@ -40,6 +40,7 @@ def _close(got, want, dtype, what):
         (1, 256, 256, 2, 32, True, 96),  # sliding window
         (2, 192, 192, 2, 64, False, 0),  # non-causal
         (1, 100, 100, 2, 128, True, 0),  # ragged tail, masked in the kernel
+        (2, 197, 197, 12, 64, False, 0),  # ViT-B/16: 196 patches + the class token, non-causal
     ],
 )
 def test_kernels_match_plain(cuda, dtype, B, Tq, Tk, H, D, causal, window):

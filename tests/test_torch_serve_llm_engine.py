@@ -9,6 +9,8 @@ give equal draws. Where the schedule must be the same step for step
 on the test thread, their threads stopped, as the JAX engine's own white-box
 tests do.
 
+A mixture-of-experts model runs the same schedule against both engines.
+
 Every threaded engine is shut down in ``finally``; every ``result()`` has a
 timeout of 60 s or less.
 """
@@ -172,6 +174,35 @@ def test_prefix_hits_evictions_and_preemptions_match_jax(model):
     end = traces[1][-1][1]
     assert end["prefix_hit_blocks"] >= 2 and end["preemptions"] >= 1 and end["evicted_blocks"] >= 1, end
     assert end["free_blocks"] + end["cached_blocks"] == end["num_blocks"]  # no block leaked
+
+
+def test_moe_engine_matches_jax_engine_and_generate():
+    """A mixture-of-experts model (4 experts) behind the engine: chunked
+    prefill with padded final chunks, a shared prefix and a pool small
+    enough to preempt. Greedy tokens equal the JAX engine's and the port's
+    dense generate()'s: lossless routing keeps padding rows and other slots
+    from taking a token's expert slot."""
+    kw_model = dict(MODEL, num_experts=4)
+    cfg_j = jt.TransformerConfig(dtype=jnp.float32, **kw_model)
+    cfg_t = tt.TransformerConfig(dtype=torch.float32, **kw_model)
+    params_j = jt.init_params(jax.random.PRNGKey(1), cfg_j)
+    params_t = tt.params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t, device="cpu")
+    system = _prompt(11, 8)  # two full blocks
+    prompts = [(system + _prompt(12, 3), 6), (system + _prompt(13, 5), 14), ([4] * 7, 14), (_prompt(14, 6), 5)]
+    kw = dict(num_slots=2, block_size=4, max_model_len=32, num_blocks=9, prefill_chunk=4)
+    outs = []
+    for cls, params, cfg in ((JaxEngine, params_j, cfg_j), (LLMEngine, params_t, cfg_t)):
+        eng = _by_hand(cls, params, cfg, **kw)
+        reqs = [eng.submit(*prompts[0])]
+        _run(eng)  # the first request's prefix blocks enter the cache
+        reqs += [eng.submit(p, max_new_tokens=m) for p, m in prompts[1:]]
+        _run(eng)
+        outs.append(([r.result(timeout=5) for r in reqs], _stats(eng)))
+    assert outs[1] == outs[0]
+    stats = outs[1][1]
+    assert stats["preemptions"] >= 1 and stats["prefix_hit_blocks"] >= 2, stats
+    for (prompt, m), toks in zip(prompts, outs[1][0]):
+        assert toks == tg.generate(params_t, torch.tensor([prompt]), cfg_t, max_new_tokens=m)[0].tolist()
 
 
 def test_cancel_frees_blocks(model):

@@ -2,7 +2,7 @@
 cluster against ``JaxTrainer`` on the JAX package's (the same parameters and
 batch give the same losses), the gang restart from the last checkpoint, a
 2-worker gloo DDP run, a single worker with no placement group, the flagship
-loop's report, and a GPU trainer refusing a cluster with no card. One port
+loop's report (and its mixture-of-experts config), and a GPU trainer refusing a cluster with no card. One port
 cluster for the module, always shut down; the parity test also boots one JAX
 cluster, and shuts it down before it trains on the port's."""
 
@@ -123,6 +123,26 @@ def test_flagship_loop_reports_its_totals(cluster, tmp_path):
     # the plain versions run on the CPU: no kernel was launched
     assert m["launches"] == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
     assert m["tokens_per_sec_framework"] > 0 and m["tokens_per_sec_raw"] > 0 and m["ratio"] > 0
+
+
+def test_flagship_loop_trains_a_mixture_of_experts_model(cluster, tmp_path):
+    """The loop takes an expert config unchanged: its first loss is the
+    port's MoE loss on the same seeded weights and batch, computed here."""
+    from ray_tpu_torch.models import transformer as tt
+
+    model = dict(CPU_MODEL, num_experts=4, n_layers=1)
+    config = {"model": model, "dtype": "float32", "batch": 2, "seq": 32, "warmup": 2, "rounds": 0,
+              "param_seed": 0, "batch_seed": 1}
+    result = TorchTrainer(train_loop, train_loop_config=config, scaling_config=CPU,
+                          run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    cfg = tt.TransformerConfig(**model, dtype=torch.float32)
+    params = tt.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = tt.loss_fn(params, {"tokens": tokens}, cfg).item()
+    m = result.metrics
+    assert m["steps"] == 2 and m["n_params"] == tt.num_params(params)
+    np.testing.assert_allclose(m["first_loss"], want, rtol=1e-6)
 
 
 def test_gang_restarts_from_the_last_checkpoint(cluster, tmp_path):

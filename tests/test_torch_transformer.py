@@ -123,14 +123,32 @@ def test_transformer_matches_jax(kv_heads, window, remat, tie):
 
 def test_entry_points_refuse_what_is_not_ported():
     cfg = tt.TransformerConfig(**SMALL)
-    with pytest.raises(NotImplementedError):
-        tt.init_params(dataclasses.replace(cfg, num_experts=4), device="cpu")
     params = tt.init_params(cfg, device="cpu")
     tokens = torch.zeros(1, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError):
         tt.forward(params, tokens, cfg, attn_impl="ring")
     with pytest.raises(NotImplementedError):
         tt.forward(params, tokens, cfg, mesh=object())
+
+
+def test_moe_forward_and_loss_match_jax():
+    """The mixture-of-experts branch (4 experts, top-1, capacity factor
+    1.25): logits, the aux summed over layers, and the loss with 0.01 aux,
+    at the bars above. tests/test_torch_moe.py holds its gradients and
+    AdamW steps."""
+    kw = dict(SMALL, n_layers=1, n_kv_heads=2, num_experts=4)
+    cfg_j, cfg_t = jt.TransformerConfig(dtype=jnp.float32, **kw), tt.TransformerConfig(dtype=torch.float32, **kw)
+    params_j = jt.init_params(jax.random.PRNGKey(3), cfg_j)
+    params_t = tt.params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t, device="cpu")
+    tokens = np.random.default_rng(3).integers(0, cfg_j.vocab_size, size=(B, T + 1)).astype(np.int32)
+    logits_j, aux_j = jax.jit(jt.forward, static_argnums=2)(params_j, jnp.asarray(tokens[:, :-1]), cfg_j)
+    loss_j = jax.jit(jt.loss_fn, static_argnums=2)(params_j, {"tokens": jnp.asarray(tokens)}, cfg_j)
+    with torch.no_grad():
+        logits_t, aux_t = tt.forward(params_t, torch.tensor(tokens[:, :-1]), cfg_t)
+        loss_t = tt.loss_fn(params_t, {"tokens": torch.tensor(tokens)}, cfg_t)
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(aux_t.item(), float(aux_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5, atol=1e-5)
 
 
 def test_init_params_layout_and_count():
