@@ -78,10 +78,28 @@ line:
    H 12, D 64, non-causal) timed against its plain version and SDPA, beside
    its bound; ResNet-50 inference (224^2, batch 64, bf16, eval), images/s;
    and a few MNIST-MLP train steps.
+11. parallel: parallel/ on a one-card mesh (a world-1 NCCL group; one card
+   allows no mesh of more ranks). Ring attention's chunk function at sp = 4's
+   offsets on the flagship's attention (chunks of B 12 x 256 x H 8 x D 128,
+   bf16): the diagonal (causal) and a chunk below it (non-causal, with the
+   LSE) through the forward kernel against the plain chunk under MATCH_TOL,
+   the masked chunk launching nothing; that non-causal LSE launch timed
+   against its plain version and aten's flash attention with its LSE, beside
+   its bound. Then, counted as the phase's path: ring_attention (causal and
+   not) and ulysses_attention forward and backward at sp = 1 on the full
+   [12, 1024, 8, 128] against flash_attention; the flagship dense train step
+   on the mesh (make_train_step(mesh=...), params placed by their logical
+   axes), its first loss against the main path's within SHARDED_LOSS_RTOL
+   and 8 launches per kernel per step, its step ms beside the main path's;
+   pipeline_apply at pp = 1 with one flagship layer as the stage, equal to
+   the layer; save_sharded and restore_sharded of the trained params and
+   AdamW state, equal bit for bit. (The trainer phase also runs the loop on
+   the worker's session.get_mesh(): "mesh trainer".)
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
-Phases run in the order 1-6, 8, 9, 7 (both trainer runs in one cluster), 10.
+Phases run in the order 1-6, 8, 9, 7 (the trainer runs in one cluster), 10,
+11.
 """
 
 from __future__ import annotations
@@ -175,6 +193,13 @@ VIT = dict(B=64, T=197, H=12, D=64)  # the forward kernel's shape in ViT-B/16
 # kernel's bf16 rounding (rel_l2 ~2.3e-3 at this shape); the card read
 # 1.13e-2, ~4x below the bar.
 VIT_LOGIT_RTOL = 5e-2
+# The parallel phase: ring chunks of the main shape at sp = 4 (rank 2's
+# offsets), and the sharded step's first loss against the main path's: the
+# same program on a world-1 mesh, whose collectives move nothing.
+RING = dict(sp=4, rank=2)
+SHARDED = dict(warmup=2, steps=5)  # the sharded step: warm-up steps (DTensor's first dispatches), then timed ones
+SHARDED_LOSS_RTOL = 1e-6
+TRAINER_MESH = dict(warmup=2, rounds=0, chunk=1, lag=1, profile_steps=0, mesh=True)
 
 
 def _phase(name):
@@ -979,7 +1004,8 @@ def trainer_phase(torch, card, main_first_loss, main_step_ms, moe_first_loss):
                  max_seq_len=1024, remat=False, fused_loss=False, scan_unroll=8)
     common = dict(dtype="bfloat16", batch=MAIN["B"], seq=MAIN["T"], param_seed=0, batch_seed=1)
     runs = [("trainer", dict(model=model, **common, **TRAINER), main_first_loss, main_step_ms),
-            ("moe trainer", dict(model=dict(model, **MOE), **common, **TRAINER_MOE), moe_first_loss, None)]
+            ("moe trainer", dict(model=dict(model, **MOE), **common, **TRAINER_MOE), moe_first_loss, None),
+            ("mesh trainer", dict(model=model, **common, **TRAINER_MESH), main_first_loss, None)]
     storage = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     t0 = time.time()
     rt.init(num_cpus=4, num_gpus=1)
@@ -1009,12 +1035,35 @@ def trainer_phase(torch, card, main_first_loss, main_step_ms, moe_first_loss):
     failures = [f"worker processes {left} outlived shutdown()"] if left else []
     counts_out = []
     for n, ((label, config, first_loss, step_ms), (m, t_fit, driver_counts)) in enumerate(zip(runs, results)):
+        if config.get("mesh"):
+            failures += _mesh_trainer_report(torch, label, config, m, first_loss, driver_counts)
+            continue
         start, since = (t0, "init()") if n == 0 else (t_fit, "fit()")
         failures += _trainer_report(torch, card, label, config, m, first_loss, step_ms, driver_counts, start, since)
         counts_out.append(m["launches"])
     if failures:
         raise AssertionError("trainer phase: " + "; ".join(failures))
     return counts_out
+
+
+def _mesh_trainer_report(torch, label, config, m, first_loss, driver_counts):
+    """The loop on the worker's session.get_mesh(): a one-card mesh, its
+    sharded steps' launches and first loss; returns its failures."""
+    steps, counts, L = m["steps"], m["launches"], config["model"]["n_layers"]
+    rel = abs(m["first_loss"] - first_loss) / abs(first_loss)
+    print(f"{label}: session.get_mesh() in the worker: {m.get('mesh')}; device {m['device_name']}; launches over "
+          f"{steps} sharded steps {counts} (expected {steps * L} each); first loss {m['first_loss']:.6f}, main path "
+          f"{first_loss:.6f} (relative difference {rel:.2e}, bar {TRAINER_LOSS_RTOL})")
+    failures = []
+    if m.get("mesh") != {"dp": 1}:
+        failures.append(f"{label}: the worker's mesh is {m.get('mesh')}, not one dp axis of one card")
+    if m["device_name"] != torch.cuda.get_device_name(0) or m["pid"] == os.getpid():
+        failures.append(f"{label}: the loop did not run in a worker on this process's card")
+    if counts != {n: steps * L for n in KERNELS} or any(driver_counts.values()):
+        failures.append(f"{label}: the worker launched {counts} (this process {driver_counts}), not {L} per step")
+    if not rel <= TRAINER_LOSS_RTOL:
+        failures.append(f"{label}: first loss {m['first_loss']} is not the main path's {first_loss}")
+    return failures
 
 
 def _trainer_report(torch, card, label, config, m, first_loss, step_ms, driver_counts, start, since):
@@ -1179,6 +1228,225 @@ def zoo_phase(torch, card, errs):
     return row
 
 
+def _ring_chunk_checks(torch, A, R):
+    """The ring's chunk function at sp = 4's offsets (rank RING['rank']) on
+    the main shape's chunk: the diagonal and a chunk below it through the
+    kernel against the plain chunk, the masked chunk launching nothing.
+    Returns the readings of the non-causal (below-diagonal) chunk."""
+    B, H, D = MAIN["B"], MAIN["H"], MAIN["D"]
+    Tc = MAIN["T"] // RING["sp"]
+    q, k, v, _ = _inputs(torch, 300, torch.bfloat16, B, Tc, Tc, H, D)
+    scale = D**-0.5
+    q_start = RING["rank"] * Tc
+    failures, below = [], None
+    for label, k_start, want_launches in (("masked", q_start + Tc, 0), ("diagonal", q_start, 1), ("below", 0, 1)):
+        A.reset_launch_counts()
+        out, lse = R._flash_chunk(q, k, v, q_start, k_start, scale)
+        torch.cuda.synchronize()
+        n = A.launch_counts()["flash_fwd"]
+        want_out, want_lse = R._xla_chunk(q, k, v, q_start, k_start, True, scale)
+        if n != want_launches:
+            failures.append(f"ring chunk {label}: {n} launches, expected {want_launches}")
+        if not want_launches:
+            ok = not out.any() and bool(R._empty(lse).all())
+            print(f"ring chunk {label} (k_start {k_start} > q_start {q_start}): {n} launches, zeros and an empty "
+                  f"LSE: {ok}")
+            failures += [] if ok else [f"ring chunk {label}: not zeros and an empty LSE"]
+            continue
+        m = {"out": A.mismatch(out, want_out), "lse": A.mismatch(lse, want_lse)}
+        for what, r in m.items():
+            failures += [f"ring chunk {label} {what}: {x}" for x in A.over_tolerance(r, torch.bfloat16)]
+        print(f"ring chunk {label} (bf16 B{B} T{Tc} H{H} D{D}, q_start {q_start}, k_start {k_start}, "
+              f"{'causal' if k_start == q_start else 'non-causal'}, LSE): {n} launch; "
+              + " ".join(f"{w} rel_l2={r['rel_l2']:.2e} elem={r['elem']:.2e} max_abs={r['max_abs']:.2e}"
+                         for w, r in m.items()))
+        if label == "below":
+            below = m
+    if failures:
+        raise AssertionError("parallel: " + "; ".join(failures))
+    return q, k, v, below
+
+
+def _ring_chunk_row(torch, A, q, k, v, errs, launches):
+    """The kernels line's row for the forward kernel at the ring chunk's
+    shape, non-causal with its LSE: kernel, plain and library ms, bound."""
+    B, Tc, H, D = q.shape
+    scale = D**-0.5
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    flash_lse = torch.ops.aten._scaled_dot_product_flash_attention  # returns (out, lse, ...)
+    with torch.no_grad():
+        ms = _time_ms(torch, lambda: A.flash_fwd_cuda(q, k, v, False, scale, 0, save_lse=True), 50)
+        plain_ms = _time_ms(torch, lambda: A._plain_flash_fwd(q, k, v, False, scale, 0), 10)
+        lib_ms = _time_ms(torch, lambda: flash_lse(qt, kt, vt, 0.0, False, False, scale=scale), 50)
+    flops = 4 * D * B * H * Tc * Tc  # QK^T, PV
+    nbytes = 4 * B * Tc * H * D * 2 + B * H * Tc * 4  # q k v -> out (bf16), lse (f32)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = {"name": "flash_fwd_ring_chunk", "kernel": "flash_fwd", "route": "cuda", "design": DESIGNS["flash_fwd"],
+           "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu", "replaces": "ray_tpu/ops/attention.py:57",
+           "shape": f"bf16 B{B} T{Tc} H{H} D{D} non-causal, LSE (a ring chunk below the diagonal)",
+           "launches": launches, "max_abs_err": max(e["max_abs"] for e in errs.values()),
+           "rel_l2_err": max(e["rel_l2"] for e in errs.values()), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": lib_ms, "plain_covers": "out+lse", "library_covers": "out+lse"}
+    print(f"flash_fwd at the ring chunk's shape ({row['shape']}): {ms:.4f} ms (bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; {row['bound_ms'] / ms:.1%} of bound), "
+          f"plain {plain_ms:.3f} ms, library (aten._scaled_dot_product_flash_attention) {lib_ms:.4f} ms")
+    return row
+
+
+def _attention_paths(torch, A, mesh):
+    """ring_attention (causal and not) and ulysses_attention at sp = 1 on the
+    main shape, forward and backward, against flash_attention on the same
+    inputs; returns (failures, each path's own launches)."""
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention
+
+    B, T, H, D = MAIN["B"], MAIN["T"], MAIN["H"], MAIN["D"]
+    q0, k0, v0, dout = _inputs(torch, 301, torch.bfloat16, B, T, T, H, D)
+    failures, launches = [], {}
+    for label, causal, fn in (("ring causal", True, ring_attention), ("ring non-causal", False, ring_attention),
+                              ("ulysses causal", True, ulysses_attention)):
+        def run(attend):
+            q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+            out = attend(q, k, v)
+            out.backward(dout)
+            return out.detach(), q.grad, k.grad, v.grad
+
+        want = run(lambda q, k, v: A.flash_attention(q, k, v, causal=causal))
+        before = A.launch_counts()
+        got = run(lambda q, k, v: fn(q, k, v, mesh, causal=causal).to_local())
+        launches[label] = {n: A.launch_counts()[n] - before[n] for n in KERNELS}
+        torch.cuda.synchronize()
+        m = {w: A.mismatch(a, b) for w, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+        for w, r in m.items():
+            failures += [f"{label} {w}: {x}" for x in A.over_tolerance(r, torch.bfloat16)]
+        print(f"{label} at sp = 1, bf16 B{B} T{T} H{H} D{D}, against flash_attention: "
+              + " ".join(f"{w} rel_l2={r['rel_l2']:.2e} max_abs={r['max_abs']:.2e}" for w, r in m.items())
+              + f"; output equal bit for bit: {torch.equal(got[0], want[0])}; launches {launches[label]}")
+    return failures, launches
+
+
+def parallel_phase(torch, card, main_first_loss, main_step_ms):
+    """parallel/ on a one-card mesh (module doc, phase 11); returns the
+    kernels line's ring-chunk row and the phase's launch counts."""
+    _phase("parallel")
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.parallel import ring_attention as R
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.multichip import _free_port
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+    from ray_tpu_torch.train.torch.checkpointing import restore_sharded, save_sharded
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    storage = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mesh = create_mesh(MeshConfig(), device_type="cuda")
+        print(f"mesh: {mesh}, DeviceMesh {mesh.device_mesh}, backend {dist.get_backend()}")
+        q, k, v, below = _ring_chunk_checks(torch, A, R)
+        failures = []
+
+        # The phase's path: each part's own launches (not those of the references it is held to).
+        bad, path_counts = _attention_paths(torch, A, mesh)
+        failures += bad
+
+        cfg = tt.TransformerConfig(
+            vocab_size=32000, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8, d_ff=2816,
+            max_seq_len=1024, dtype=torch.bfloat16, param_dtype=torch.float32, remat=False, fused_loss=False)
+        params = tt.shard_params(tt.init_params(cfg, seed=0), cfg, mesh)
+        opt = tt.adamw(params)
+        step = tt.make_train_step(cfg, opt, mesh=mesh)
+        batch = {"tokens": tt.place_batch(_batch(torch, cfg.vocab_size, MAIN["B"])["tokens"], mesh)}
+        before = A.launch_counts()
+        losses, ms = [], []
+        for _ in range(SHARDED["warmup"] + SHARDED["steps"]):
+            t = time.perf_counter()
+            losses.append(step(params, batch).item())
+            ms.append((time.perf_counter() - t) * 1e3)
+        step_counts = path_counts["sharded step"] = {n: A.launch_counts()[n] - before[n] for n in KERNELS}
+        timed = ms[SHARDED["warmup"]:]
+        med = sorted(timed)[len(timed) // 2]
+        rel = abs(losses[0] - main_first_loss) / abs(main_first_loss)
+        want = {n: len(ms) * cfg.n_layers for n in KERNELS}
+        print(f"sharded step on {card} ({mesh}; params DTensors, the batch sharded over dp): losses "
+              f"{[round(x, 4) for x in losses]}; first loss {losses[0]:.6f}, main path's {main_first_loss:.6f} "
+              f"(relative difference {rel:.2e}, bar {SHARDED_LOSS_RTOL}); step {med:.1f} ms median of "
+              f"{len(timed)} (min {min(timed):.1f}, max {max(timed):.1f}; warm-up {[round(x, 1) for x in ms[:SHARDED['warmup']]]}) "
+              f"beside the main path's {main_step_ms:.1f} ms meshless; launches {step_counts} (expected {want})")
+        if not rel <= SHARDED_LOSS_RTOL:
+            failures.append(f"sharded step: first loss {losses[0]} is not the main path's {main_first_loss}")
+        if step_counts != want:
+            failures.append(f"sharded step launched {step_counts}, expected {want}")
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            failures.append(f"sharded step: loss not finite or did not fall: {losses}")
+
+        # pipeline_apply at pp = 1, one flagship layer as the stage, against the layer itself.
+        layer = {n: w.to_local()[:1].detach() for n, w in params["layers"].items()}
+        x0 = torch.randn(MAIN["B"] // 2, MAIN["T"], cfg.d_model, generator=torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda").to(torch.bfloat16)
+        cos, sin = tt._rope_tables(torch.arange(MAIN["T"], device="cuda")[None], cfg.head_dim, cfg.rope_theta)
+        stage = lambda lp, h: tt._layer(lp, h, cos, sin, cfg)[0]  # noqa: E731
+        before = A.launch_counts()
+        x = x0.clone().requires_grad_()
+        y = pipeline_apply(stage, layer, x, mesh)
+        y.float().square().mean().backward()
+        pipe_counts = path_counts["pipeline"] = {n: A.launch_counts()[n] - before[n] for n in KERNELS}
+        x_ref = x0.clone().requires_grad_()
+        y_ref = stage({n: w[0] for n, w in layer.items()}, x_ref)
+        y_ref.float().square().mean().backward()
+        same = torch.equal(y, y_ref) and torch.equal(x.grad, x_ref.grad)
+        print(f"pipeline_apply at pp = 1 (1 stage, 1 microbatch; one flagship layer, bf16 [{MAIN['B'] // 2}, "
+              f"{MAIN['T']}, {cfg.d_model}]): output and input gradient equal to the layer's bit for bit: {same}; "
+              f"launches {pipe_counts}")
+        if not same:
+            failures.append("pipeline_apply at pp = 1 differs from the layer")
+        counts = {n: sum(c[n] for c in path_counts.values()) for n in KERNELS}
+        del x, y, x_ref, y_ref
+
+        # The checkpoint of the trained params and AdamW state, on the card.
+        names = {id(p): n for n, p in (list((k2, v2) for k2, v2 in params.items() if k2 != "layers")
+                                       + [(f"layers.{k2}", v2) for k2, v2 in params["layers"].items()])}
+        tree = {"params": params, "opt": {names[id(p)].replace(".", "/"): dict(opt.state[p]) for p in opt.state}}
+        t_ck = time.perf_counter()
+        path = save_sharded(os.path.join(storage, "ck"), tree)
+        got = restore_sharded(path, like=tree)
+        ck_s = time.perf_counter() - t_ck
+
+        def leaves(t):
+            return [y for v2 in t.values() for y in leaves(v2)] if isinstance(t, dict) else [t]
+
+        pairs = list(zip(leaves(tree), leaves(got)))
+        local = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
+        equal = all(torch.equal(local(a), local(b)) for a, b in pairs)
+        nbytes = sum(a.numel() * a.element_size() for a, _ in pairs)
+        print(f"checkpoint: save_sharded + restore_sharded of {len(pairs)} tensors ({nbytes / 2**30:.2f} GiB: params "
+              f"and AdamW state) in {ck_s:.1f} s; equal bit for bit: {equal}")
+        if not equal:
+            failures.append("the restored checkpoint differs from the saved state")
+        del params, opt, step, batch, tree, got, pairs
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(storage, ignore_errors=True)
+    print(f"parallel phase launches: {counts} ({path_counts})")
+    failures += [f"parallel phase never launched {n}" for n in KERNELS if not counts[n]]
+    ring = [path_counts[p]["flash_fwd"] for p in ("ring causal", "ring non-causal")]
+    if ring != [1, 1]:  # sp = 1: one chunk, the diagonal (causal) or a full block
+        failures.append(f"ring attention launched the forward kernel {ring} times, not once a path")
+    row = _ring_chunk_row(torch, A, q, k, v, below, sum(ring))
+    print("parallel: " + json.dumps({
+        "mesh": str(mesh), "sharded_first_loss": losses[0], "main_first_loss": main_first_loss,
+        "sharded_step_ms": med, "main_step_ms": main_step_ms, "launches": counts, "checkpoint_s": ck_s,
+        "checkpoint_bytes": nbytes, "phase_s": time.perf_counter() - t0}))
+    if failures:
+        raise AssertionError("parallel: " + "; ".join(failures))
+    return row, counts
+
+
 def main() -> int:
     import torch
 
@@ -1200,6 +1468,10 @@ def main() -> int:
         row["moe_launches"] = moe_counts[row["name"]]
         row["moe_worker_launches"] = moe_worker_counts[row["name"]]
     kernels.append(zoo_phase(torch, smi, errs))
+    ring_row, parallel_counts = parallel_phase(torch, smi, first_loss, step_ms)
+    for row in kernels[:3]:
+        row["parallel_launches"] = parallel_counts[row["name"]]
+    kernels.append(ring_row)
     print(f"script wall time {time.perf_counter() - t0:.1f} s (from the device phase; imports before it)")
     print(smi)
     print(json.dumps({"kernels": kernels}))

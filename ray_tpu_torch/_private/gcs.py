@@ -175,6 +175,12 @@ class GcsServer:
             # availability) stamp nothing — the delta reply stays empty.
             node["resources_available"] = avail
             self._bump_view(req["node_id"])
+            if any(pg.get("state") == "PENDING" for pg in self.placement_groups.values()):
+                # Resources came back (a bundle returned, a worker exited):
+                # a parked placement group may fit now (reference:
+                # GcsPlacementGroupManager schedules pending groups again
+                # when resources change, not only on node join).
+                asyncio.ensure_future(self._retry_pending_pgs())
         node["store_usage"] = req.get("store_usage", node["store_usage"])
         node["load"] = req.get("load", [])
         node["num_active_workers"] = req.get("num_active_workers", 0)

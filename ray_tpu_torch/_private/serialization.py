@@ -11,8 +11,9 @@ Tensors take the place of the JAX package's ``jax.Array`` reducers: a
 ``torch.Tensor`` leaves the process as a numpy view of its host memory (a
 CUDA tensor through one device-to-host copy, with its device index), and
 comes back as a fresh tensor of the same dtype, bit for bit, on the CPU or
-on ``cuda:<index>``. A sharded ``DTensor`` raises until the port has a
-device mesh (ROADMAP A9).
+on ``cuda:<index>``. A sharded ``DTensor`` raises: one process of a torch
+gang sees only its own shards, and the store does not gather them (ROADMAP
+A9f).
 
 Wire layout: msgpack header {p: pickle_len, b: [buffer sizes]} then the
 pickle bytes, then each out-of-band buffer 64-byte aligned.
@@ -165,8 +166,9 @@ def _reduce_tensor(t):
 
     if type(t).__name__ == "DTensor":
         raise NotImplementedError(
-            "a sharded DTensor cannot be put into the object store yet: it waits "
-            "for the port's device mesh (ROADMAP A9)"
+            "a sharded DTensor cannot be put into the object store yet: each rank "
+            "holds only its own shards (ROADMAP A9f); put dtensor.full_tensor() or "
+            "to_local() instead"
         )
     if type(t) not in (torch.Tensor, torch.nn.Parameter):
         return NotImplemented  # other subclasses: torch's own reducers

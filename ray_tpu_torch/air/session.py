@@ -25,6 +25,7 @@ class TrainContext:
     report_queue: Any = None  # queue.Queue of (metrics, Checkpoint|None)
     checkpoint: Any = None  # restored checkpoint, if resuming
     device: Any = None  # torch.device this worker trains on (cuda:<i> or cpu)
+    mesh: Any = None  # parallel.mesh.Mesh over the gang (dp = world size)
 
 
 def _set_context(ctx: TrainContext):
@@ -81,6 +82,8 @@ def get_device():
 
 
 def get_mesh():
-    """The JAX package's per-gang device mesh has no counterpart yet: it waits
-    for the port's DeviceMesh (ROADMAP A9)."""
-    raise NotImplementedError("session.get_mesh() waits for the port's device mesh (ROADMAP A9)")
+    """The gang's device mesh (``ray_tpu_torch.parallel.mesh.Mesh``): one
+    ``dp`` axis over every worker of the process group the backend formed
+    (NCCL on GPUs, gloo on CPUs; a group of one for one worker), for
+    ``make_train_step(..., mesh=session.get_mesh())``."""
+    return _get_context().mesh

@@ -18,7 +18,7 @@ What differs from PyTorch's habits, and is matched here:
   BIASED batch variance, E[x^2] - E[x]^2; training mode here does the same.
 - The flax module's ``axis_name="dp"`` averages the batch statistics across
   data-parallel replicas; on one card the batch is the whole batch. Across
-  ranks waits for the port's process groups (ROADMAP A9b/A10).
+  ranks waits (ROADMAP A9f).
 
 Images are ``[B, H, W, 3]``, the JAX package's layout; convolutions read them
 as NCHW in channels-last memory. ``resnet_params_from_jax`` turns the flax

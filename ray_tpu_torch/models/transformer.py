@@ -14,8 +14,15 @@ the port's CUDA flash kernels (``ray_tpu_torch.ops.attention``). With
 summed over layers. Entry points take ``device="cuda"`` by default and raise
 when there is no card, unless the caller passes ``device="cpu"``.
 
-Not in this package yet: ring and Ulysses attention (``attn_impl`` other
-than ``"auto"``) and meshes (``mesh``).
+With a ``mesh`` (``parallel/mesh.py``) the parameters are DTensors placed by
+``param_logical_axes`` (``shard_params``), the tokens are sharded over
+(dp, fsdp) on the batch and over sp on the sequence, and the same code runs
+on DTensors, whose ops insert the collectives (module notes at
+``_attend``). Attention takes plain tensors: with ``attn_impl="ring"`` or
+``"ulysses"`` and ``sp`` > 1 it is ``parallel/ring_attention.py`` or
+``parallel/ulysses.py``; otherwise the flash kernels run on each rank's
+batch and heads over the whole sequence (``local_map``), as does the fused
+loss on each rank's rows.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import flash_attention
-from ray_tpu_torch.ops.losses import fused_lm_loss
+from ray_tpu_torch.ops.losses import fused_lm_loss, fused_lm_loss_sum
 from ray_tpu_torch.parallel.moe import moe_layer, span
 
 
@@ -68,11 +75,6 @@ def _device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
-
-
-def _check_supported(mesh=None, attn_impl: str = "auto") -> None:
-    if mesh is not None or attn_impl != "auto":
-        raise NotImplementedError("meshes and ring/Ulysses attention are not ported yet")
 
 
 def _param_shapes(cfg: TransformerConfig) -> dict:
@@ -150,6 +152,74 @@ def params_from_jax(np_params: dict, cfg: TransformerConfig, *, device="cuda") -
     return params
 
 
+def param_logical_axes(cfg: TransformerConfig) -> dict:
+    """Per-leaf logical axis names (mapped to mesh axes by
+    parallel/mesh.logical_to_spec); the JAX package's."""
+    layers = {
+        "attn_norm": ("layers", None),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv"),
+        "wv": ("layers", "embed", "kv"),
+        "wo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", None),
+    }
+    if cfg.num_experts > 0:
+        layers.update({
+            "gate": ("layers", "embed", None),
+            "wi_e": ("layers", "expert", "embed", "mlp"),
+            "wg_e": ("layers", "expert", "embed", "mlp"),
+            "wo_e": ("layers", "expert", "mlp", "embed"),
+        })
+    else:
+        layers.update({
+            "wi": ("layers", "embed", "mlp"),
+            "wg": ("layers", "embed", "mlp"),
+            "wo_mlp": ("layers", "mlp", "embed"),
+        })
+    axes = {"embed": ("vocab", "embed"), "layers": layers, "norm_f": (None,)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def shard_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
+    """``params`` (every rank passing the same values) as DTensors on
+    ``mesh``, each laid out by its ``param_logical_axes`` through
+    ``logical_to_spec``; leaves that require grad still do."""
+    from ray_tpu_torch.parallel.mesh import logical_to_spec, shard_pytree
+
+    axes = param_logical_axes(cfg)
+
+    def spec(path, _leaf):
+        node = axes
+        for key in path:
+            node = node[key]
+        return logical_to_spec(node)
+
+    return shard_pytree(params, mesh, spec)
+
+
+def _placed(t, mesh, logical: tuple, src_data_rank: int | None = 0):
+    """``t`` laid out on ``mesh`` by its logical axes: a DTensor is
+    redistributed (if it is laid out otherwise); a plain tensor, passed whole
+    by every rank, is distributed (from rank 0's values, or with
+    ``src_data_rank=None`` from each rank's own, without communication)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from ray_tpu_torch.parallel.mesh import logical_to_spec, spec_to_placements
+
+    placements = spec_to_placements(logical_to_spec(logical), mesh, t.dim())
+    if isinstance(t, DTensor):
+        return t if tuple(t.placements) == placements else t.redistribute(t.device_mesh, placements)
+    return distribute_tensor(t, mesh.device_mesh, placements, src_data_rank=src_data_rank)
+
+
+def place_batch(tokens, mesh):
+    """A token batch [B, ...] (every rank passing the same; rank 0's are
+    scattered) as a DTensor sharded over (dp, fsdp) on the batch."""
+    return _placed(tokens, mesh, ("batch",) + (None,) * (tokens.dim() - 1))
+
+
 def param_leaves(params: dict) -> list[torch.Tensor]:
     """Every parameter tensor, in a fixed order (for optimizers)."""
     return [params[n] for n in sorted(params) if n != "layers"] + [
@@ -192,7 +262,37 @@ def _rope_apply(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _attention_block(lp, x, cos, sin, cfg: TransformerConfig):
+def _attend(q, k, v, cfg: TransformerConfig, mesh, attn_impl: str):
+    """The attention choice of the JAX package: ring or Ulysses attention
+    over ``sp`` when asked for and ``sp`` > 1, else the flash kernels. On
+    DTensors the flash kernels run in ``local_map`` on each rank's batch and
+    heads, over the whole sequence (gathered over ``sp``): the kernels never
+    see a DTensor."""
+    sp = mesh.shape["sp"] if mesh is not None else 1
+    if attn_impl in ("ring", "ulysses") and sp > 1:
+        if cfg.sliding_window:
+            raise NotImplementedError(f"sliding_window + {attn_impl} attention not supported")
+        if attn_impl == "ring":
+            from ray_tpu_torch.parallel.ring_attention import ring_attention
+
+            return ring_attention(q, k, v, mesh, causal=True)
+        from ray_tpu_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, mesh, causal=True)
+    attend = lambda q, k, v: flash_attention(q, k, v, causal=True, window=cfg.sliding_window)  # noqa: E731
+    if mesh is None:
+        return attend(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    from ray_tpu_torch.parallel.mesh import placements_keeping
+
+    whole_seq = placements_keeping(q, mesh, (0, 2))
+    return local_map(lambda *t: attend(*(x.contiguous() for x in t)), out_placements=whole_seq,
+                     in_placements=(whole_seq,) * 3,
+                     device_mesh=mesh.device_mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _attention_block(lp, x, cos, sin, cfg: TransformerConfig, mesh=None, attn_impl: str = "auto"):
     B, T, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = _rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -204,50 +304,69 @@ def _attention_block(lp, x, cos, sin, cfg: TransformerConfig):
     if KV != H:  # GQA: each kv head serves H/KV consecutive query heads (jnp.repeat)
         k = k.repeat_interleave(H // KV, dim=2)
         v = v.repeat_interleave(H // KV, dim=2)
-    o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    o = _attend(q, k, v, cfg, mesh, attn_impl)
     return x + o.reshape(B, T, H * Dh) @ lp["wo"].to(o.dtype)
 
 
-def _moe_mlp(lp, h, capacity_factor: float):
+def _moe_mlp(lp, h, capacity_factor: float, mesh=None):
     """The one expert call of the training block and of KV-cache decode
     (they differ only in capacity: training drops tokens past it, inference
     runs lossless). Returns (out, aux)."""
     with span("moe/weight_casts"):
         params = {"gate": lp["gate"].to(h.dtype), "wi": lp["wi_e"].to(h.dtype), "wo": lp["wo_e"].to(h.dtype)}
-    return moe_layer(params, h, capacity_factor=capacity_factor)
+    return moe_layer(params, h, capacity_factor=capacity_factor, mesh=mesh)
 
 
-def _mlp_block(lp, x, cfg: TransformerConfig):
+def _mlp_block(lp, x, cfg: TransformerConfig, mesh=None):
     """(x + MLP(norm(x)), the layer's moe aux: 0.0 for the dense MLP)."""
     h = _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.num_experts > 0:
         # The experts are single GELU MLPs; wg_e takes no part.
-        out, aux = _moe_mlp(lp, h, cfg.expert_capacity_factor)
+        out, aux = _moe_mlp(lp, h, cfg.expert_capacity_factor, mesh)
         return x + out, aux
     gate = F.silu(h @ lp["wg"].to(h.dtype))
     up = h @ lp["wi"].to(h.dtype)
     return x + (gate * up) @ lp["wo_mlp"].to(h.dtype), 0.0
 
 
-def _layer(lp, x, cos, sin, cfg: TransformerConfig):
-    return _mlp_block(lp, _attention_block(lp, x, cos, sin, cfg), cfg)
+def _layer(lp, x, cos, sin, cfg: TransformerConfig, mesh=None, attn_impl: str = "auto"):
+    return _mlp_block(lp, _attention_block(lp, x, cos, sin, cfg, mesh, attn_impl), cfg, mesh)
+
+
+def _whole_layers(w, mesh):
+    """A stacked [L, ...] weight gathered over ``pp`` once per step, so that
+    each layer's ``w[i]`` is a local slice (DTensor would gather the whole
+    stack again for every layer's select)."""
+    from torch.distributed.tensor import Replicate
+
+    if mesh.shape["pp"] == 1:
+        return w
+    placements = [Replicate() if n == "pp" else p for n, p in zip(mesh.dim_names, w.placements)]
+    return w.redistribute(w.device_mesh, placements)
 
 
 def forward_hidden(params: dict, tokens, cfg: TransformerConfig, mesh=None, attn_impl: str = "auto"):
     """tokens [B, T] integer -> (final hidden [B, T, D], moe aux summed over
-    layers: an f32 scalar, or 0.0 for the dense MLP)."""
-    _check_supported(mesh, attn_impl)
+    layers: an f32 scalar, or 0.0 for the dense MLP). With a ``mesh`` the
+    params are DTensors (``shard_params``), the tokens a DTensor or a plain
+    tensor every rank passes whole, and the results DTensors."""
     T = tokens.shape[1]
+    layers = params["layers"]
+    if mesh is not None:
+        tokens = _placed(tokens, mesh, ("batch", "seq"))
+        layers = {n: _whole_layers(w, mesh) for n, w in layers.items()}
     x = params["embed"].to(cfg.dtype)[tokens]
     cos, sin = _rope_tables(torch.arange(T, device=x.device)[None], cfg.head_dim, cfg.rope_theta)
-    layers = params["layers"]
+    if mesh is not None:
+        # Tables for the global positions, sharded over sp as q and k are.
+        cos, sin = (_placed(t, mesh, (None, "seq", None), src_data_rank=None) for t in (cos, sin))
     aux = 0.0
     for i in range(cfg.n_layers):
         lp = {n: w[i] for n, w in layers.items()}
         if cfg.remat:
-            x, a = checkpoint(_layer, lp, x, cos, sin, cfg, use_reentrant=False)
+            x, a = checkpoint(_layer, lp, x, cos, sin, cfg, mesh, attn_impl, use_reentrant=False)
         else:
-            x, a = _layer(lp, x, cos, sin, cfg)
+            x, a = _layer(lp, x, cos, sin, cfg, mesh, attn_impl)
         aux = aux + a
     return _rms_norm(x, params["norm_f"], cfg.norm_eps), aux
 
@@ -262,17 +381,47 @@ def forward(params: dict, tokens, cfg: TransformerConfig, mesh=None, attn_impl: 
     return (x @ _head(params).to(x.dtype)).float(), aux
 
 
+def _sharded_fused_loss(x, head, targets, mesh):
+    """fused_lm_loss over DTensors: each rank's rows against the whole head
+    (gathered over tp and fsdp). Each rank's sum is one element of a vector
+    sharded over the row axes, whose DTensor sum is the total; the head's
+    gradient from each rank's rows is a partial sum over those axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ray_tpu_torch.parallel.mesh import placements_keeping
+
+    rows = placements_keeping(x, mesh, (0, 1))
+    whole = [Replicate()] * len(rows)
+    sums = local_map(lambda *a: fused_lm_loss_sum(*a).reshape(1),
+                     out_placements=[Shard(0) if isinstance(p, Shard) else Replicate() for p in rows],
+                     in_placements=(rows, whole, rows),
+                     in_grad_placements=(rows, [Partial() if isinstance(p, Shard) else Replicate() for p in rows],
+                                         rows),
+                     device_mesh=mesh.device_mesh, redistribute_inputs=True,
+                     )(x, head, _placed(targets, mesh, ("batch", "seq")))
+    return sums.sum() / targets.numel()
+
+
 def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, mesh=None, attn_impl: str = "auto"):
-    """batch: {"tokens": [B, T+1]} next-token LM loss (f32 scalar)."""
+    """batch: {"tokens": [B, T+1]} next-token LM loss (f32 scalar). With a
+    ``mesh``, the tokens are a DTensor or a plain tensor every rank passes
+    whole, and the loss is a plain scalar, the same on every rank."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
     if cfg.fused_loss:
         x, aux = forward_hidden(params, inputs, cfg, mesh, attn_impl)
-        return fused_lm_loss(x, _head(params), targets) + 0.01 * aux
-    logits, aux = forward(params, inputs, cfg, mesh, attn_impl)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, targets[..., None])[..., 0]
-    return nll.mean() + 0.01 * aux
+        if mesh is None:
+            return fused_lm_loss(x, _head(params), targets) + 0.01 * aux
+        loss = _sharded_fused_loss(x, _head(params), targets, mesh) + 0.01 * aux
+    else:
+        logits, aux = forward(params, inputs, cfg, mesh, attn_impl)
+        if mesh is not None:
+            targets = _placed(targets, mesh, ("batch", "seq"))
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        loss = nll.mean() + 0.01 * aux
+    return loss if mesh is None else loss.full_tensor()
 
 
 def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer, mesh=None,
@@ -285,18 +434,29 @@ def make_train_step(cfg: TransformerConfig, optimizer: torch.optim.Optimizer, me
     to ``device`` first. A leaf the loss does not reach (``wg_e``) gets a
     zero gradient, as under ``jax.grad``, so the optimizer still steps it
     (AdamW's weight decay) where torch would skip a leaf without one.
+
+    With a ``mesh``: ``params`` are ``shard_params``'s DTensors, the batch
+    is sharded over (dp, fsdp) (a plain batch is rank 0's, scattered), each
+    gradient is laid out as its parameter (the sums over the data axes) and
+    the optimizer steps the DTensors; ``attn_impl`` as in ``forward``.
     """
-    _check_supported(mesh, attn_impl)
     dev = _device(device)
     leaves = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(params, batch):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, {"tokens": batch["tokens"].to(dev)}, cfg)
+        tokens = batch["tokens"]
+        if mesh is None:
+            tokens = tokens.to(dev)
+        elif not hasattr(tokens, "placements"):
+            tokens = place_batch(tokens.to(dev), mesh)
+        loss = loss_fn(params, {"tokens": tokens}, cfg, mesh, attn_impl)
         loss.backward()
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            elif mesh is not None and tuple(p.grad.placements) != tuple(p.placements):
+                p.grad = p.grad.redistribute(p.device_mesh, p.placements)
         optimizer.step()
         return loss.detach()
 

@@ -78,11 +78,15 @@ def fused_lm_loss(x, head, targets, *, chunk_size: int = 512):
     [B, T] or [N] integer. Equal (f32 accumulation, logsumexp-stable) to
     gathering ``log_softmax(x @ head)``, without ever holding [N, V].
     """
+    return fused_lm_loss_sum(x, head, targets, chunk_size=chunk_size) / targets.numel()
+
+
+def fused_lm_loss_sum(x, head, targets, *, chunk_size: int = 512):
+    """The sum over tokens of ``fused_lm_loss``'s per-token NLL (f32 scalar):
+    a sharded loss adds each rank's sum before dividing by the global count."""
     if x.dim() == 3:
         B, T, D = x.shape
         x = x.reshape(B * T, D)
         targets = targets.reshape(B * T)
-    N = x.shape[0]
-    chunk = _pick_chunk(N, chunk_size)
-    total = _FusedLMLossSum.apply(x, head.to(x.dtype), targets.long(), chunk)
-    return total / N
+    chunk = _pick_chunk(x.shape[0], chunk_size)
+    return _FusedLMLossSum.apply(x, head.to(x.dtype), targets.long(), chunk)

@@ -1,3 +1,5 @@
-"""Parallelism for the port. Only mixture-of-experts (``moe``) is here yet:
-it runs on one card. Meshes, ring and Ulysses attention and pipelines wait
-for process groups (ROADMAP A9b-e)."""
+"""Parallelism for the port, over a torch DeviceMesh (``mesh``): the mesh
+and its logical sharding rules, ring attention and Ulysses over ``sp``, the
+GPipe pipeline over ``pp``, the mixture-of-experts layer with its experts
+over ``ep`` (``moe``), and ``multichip``'s pool of rank processes and
+sharded-step dryrun."""

@@ -6,8 +6,16 @@ overflow tokens dropped), the same one-hot dispatch and combine tensors
 ``[B, T, E, C]`` and the same four einsums, the same tanh-form GELU, and the
 same Switch load-balancing aux loss. The einsums are cuBLAS batched products:
 the JAX package computes them outside any Pallas kernel, and so does this
-module. Expert parallelism over a mesh axis waits for the port's device mesh
-(ROADMAP A9b).
+module.
+
+Expert parallelism (``mesh`` with ``ep`` > 1; x and the weights DTensors,
+the experts' dim sharded over ``ep``): each rank routes its share of the
+batch rows (the rows split over ``ep`` as well as over ``dp``/``fsdp``; the
+sequence whole, since queue positions count over it), the dispatched
+``[E, B, C, D]`` tensor is redistributed from row sharding to expert
+sharding over ``ep`` (an all_to_all), each rank runs its experts, and a
+second all_to_all brings the outputs back to their rows for the combine.
+The result equals the meshless layer's.
 
 One difference, on purpose: a token's position in its expert's queue is
 counted in integers. The JAX package counts it with a cumsum in the
@@ -66,25 +74,55 @@ def top_k_routing(gate_logits, num_experts: int, capacity: int, k: int = 1):
     return dispatch.to(probs.dtype), combine
 
 
-def moe_layer(params, x, *, capacity_factor: float = 1.25, k: int = 1):
+def _on_ep(t, mesh, placement):
+    """DTensor ``t`` with ``placement`` on the ``ep`` mesh dimension (the
+    other dimensions as they are)."""
+    placements = [placement if n == "ep" else p for n, p in zip(mesh.dim_names, t.placements)]
+    return t.redistribute(t.device_mesh, placements)
+
+
+def moe_layer(params, x, *, capacity_factor: float = 1.25, k: int = 1, mesh=None):
     """params: {"gate": [D, E], "wi": [E, D, F], "wo": [E, F, D]} in x's
     dtype; x [B, T, D]. Returns (out [B, T, D], aux), aux the Switch
     load-balancing loss E * mean_b sum_e f_be p_be (an f32 scalar), where
     f_be is row b's share of the whole batch's routed tokens going to e and
-    p_be row b's mean gate probability of e."""
+    p_be row b's mean gate probability of e. With a ``mesh`` x and params
+    are DTensors, and the experts run sharded over ``ep`` (module doc)."""
     B, T, D = x.shape
     E = params["gate"].shape[-1]
     capacity = max(1, int(capacity_factor * T * k / E))
+    ep = mesh is not None and mesh.shape["ep"] > 1
     with span("moe/route"):
-        logits = x @ params["gate"]  # [B, T, E]
-        dispatch, combine = top_k_routing(logits, E, capacity, k)
+        if mesh is None:
+            logits = x @ params["gate"]  # [B, T, E]
+            dispatch, combine = top_k_routing(logits, E, capacity, k)
+        else:
+            from torch.distributed.tensor import Shard
+            from torch.distributed.tensor.experimental import local_map
+
+            from ray_tpu_torch.parallel.mesh import placements_keeping
+
+            out_placements = x.placements
+            # Rows: the batch split over ep too, each row's sequence and features whole.
+            rows = placements_keeping(x, mesh, (0,), ep=Shard(0))
+            x = x.redistribute(x.device_mesh, rows)
+            logits = x @ params["gate"]
+            route = local_map(top_k_routing, out_placements=(rows, rows), in_placements=(rows, None, None, None),
+                              device_mesh=mesh.device_mesh, redistribute_inputs=True)
+            dispatch, combine = route(logits, E, capacity, k)
     with span("moe/dispatch"):
         expert_in = torch.einsum("btec,btd->ebcd", dispatch, x)  # [E, B, C, D]
+        if ep:
+            expert_in = _on_ep(expert_in, mesh, Shard(0))  # rows -> experts: all_to_all over ep
     with span("moe/experts"):
         h = F.gelu(torch.einsum("ebcd,edf->ebcf", expert_in, params["wi"]), approximate="tanh")
         expert_out = torch.einsum("ebcf,efd->ebcd", h, params["wo"])
     with span("moe/combine"):
+        if ep:
+            expert_out = _on_ep(expert_out, mesh, Shard(1))  # experts -> rows: all_to_all back
         out = torch.einsum("btec,ebcd->btd", combine, expert_out)
+        if mesh is not None:
+            out = out.redistribute(out.device_mesh, out_placements)
     with span("moe/route"):
         # Counts in f32, exact at any batch size.
         counts = dispatch.float()

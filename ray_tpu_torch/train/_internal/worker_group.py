@@ -33,6 +33,7 @@ class TrainWorker:
         self._done = False
         self.use_gpu = use_gpu
         self._device = None
+        self._mesh = None
 
     def setup_device(self) -> str:
         """Bind this worker to its device before the loop starts: with a GPU,
@@ -52,6 +53,15 @@ class TrainWorker:
         self._device = torch.device("cuda", index)
         return torch.cuda.get_device_name(index)
 
+    def build_mesh(self) -> dict:
+        """The gang's mesh, once the process group is up: one ``dp`` axis over
+        every rank (the JAX package's ``build_local_mesh`` /
+        ``init_collective`` mesh). Returns its axes."""
+        from ray_tpu_torch.parallel.mesh import single_axis_mesh
+
+        self._mesh = single_axis_mesh("dp", device_type=self._device.type)
+        return self._mesh.axes
+
     def run_train_fn(self, fn, config, dataset_shards=None, checkpoint=None):
         """Start the user loop in a thread; returns immediately."""
         ctx = air_session.TrainContext(
@@ -63,6 +73,7 @@ class TrainWorker:
             report_queue=self._report_q,
             checkpoint=checkpoint,
             device=self._device,
+            mesh=self._mesh,
         )
 
         def runner():

@@ -24,7 +24,10 @@ carries the totals::
 activation dtype's name), ``batch``, ``seq``, ``warmup``, ``rounds``,
 ``chunk``, ``lag``, ``profile_steps``, and either ``params`` (the JAX package's parameter
 pytree as numpy, through ``params_from_jax``) or ``param_seed``, and either
-``tokens`` ([batch, seq + 1] integers) or ``batch_seed``. Weights from a
+``tokens`` ([batch, seq + 1] integers) or ``batch_seed``, and ``mesh``
+(default False): True trains on ``session.get_mesh()``, the params placed by
+``shard_params`` and the batch sharded over its ``dp`` axis (the final
+report then carries the mesh's axis sizes as ``mesh``). Weights from a
 seed and the batch from a seed are drawn exactly as
 ``init_params(cfg, seed)`` and ``torch.randint`` on a generator seeded
 ``batch_seed`` on the worker's device draw them.
@@ -57,12 +60,17 @@ def train_loop(config: dict) -> None:
     else:
         params = tt.init_params(cfg, seed=config.get("param_seed", 0), device=device)
     n_params = tt.num_params(params)
-    step = tt.make_train_step(cfg, tt.adamw(params), device=device)
+    mesh = session.get_mesh() if config.get("mesh") else None
+    if mesh is not None:
+        params = tt.shard_params(params, cfg, mesh)
+    step = tt.make_train_step(cfg, tt.adamw(params), mesh=mesh, device=device)
     if "tokens" in config:
         tokens = torch.as_tensor(config["tokens"]).to(device)
     else:
         g = torch.Generator(device=device).manual_seed(config.get("batch_seed", 1))
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=g, device=device)
+    if mesh is not None:
+        tokens = tt.place_batch(tokens, mesh)
     batch_arr = {"tokens": tokens}
     if cuda:
         torch.cuda.synchronize(device)
@@ -118,6 +126,8 @@ def train_loop(config: dict) -> None:
         "pid": os.getpid(),
         "device_us": device_us,
     }
+    if mesh is not None:
+        final["mesh"] = mesh.axes
     if first is not None:
         final.update(first_loss=first[0], first_report_time=first[1])
     if rounds:

@@ -5,8 +5,9 @@ Reference: python/ray/train/torch/config.py:155 (_TorchBackend.on_start calls
 dist.init_process_group on every worker, :113, with worker-0 as master). It
 replaces the JAX package's ``JaxBackend`` (collective group and mesh): every
 worker first binds its device (``torch.cuda.set_device`` on a GPU gang), then
-a gang of more than one forms a process group — NCCL on GPUs, gloo on CPUs.
-One worker forms no group.
+the gang forms a process group — NCCL on GPUs, gloo on CPUs; one worker forms
+a group of one — and every worker builds the gang's mesh (one ``dp`` axis,
+``session.get_mesh()``).
 """
 
 from __future__ import annotations
@@ -76,8 +77,6 @@ class _TorchBackend(Backend):
         self.device_names = ray_tpu_torch.get(
             [w.setup_device.remote() for w in worker_group.workers], timeout=300
         )
-        if worker_group.num_workers == 1:
-            return  # single worker: no process group needed
         backend = self.config.backend or ("nccl" if scaling_config.use_gpu else "gloo")
         # Worker 0 is the rendezvous master (same scheme as the collective
         # plane's coordinator; single-host address like tpu_group.py).
@@ -92,6 +91,8 @@ class _TorchBackend(Backend):
             for rank, w in enumerate(worker_group.workers)
         ]
         ray_tpu_torch.get(refs, timeout=self.config.init_timeout_s + 60)
+        ray_tpu_torch.get([w.build_mesh.remote() for w in worker_group.workers],
+                          timeout=self.config.init_timeout_s + 60)
 
     def on_shutdown(self, worker_group):
         try:

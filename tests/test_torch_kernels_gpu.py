@@ -131,3 +131,32 @@ def test_engine_on_the_card_matches_dense_generate(cuda):
         eng.shutdown()
     for p, out in zip(prompts, outs):
         assert out == tg.generate(params, torch.tensor([p], device=cuda), cfg, max_new_tokens=20)[0].tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_ring_chunks_match_the_plain_chunk(cuda, dtype):
+    """Ring attention's chunk function on the forward kernel (with its LSE)
+    against ``_xla_chunk``, the chunk's plain version, at sp = 4's offsets
+    for the third rank: K after Q is masked and launches nothing, the
+    diagonal runs causal, a chunk below it and the non-causal ring run the
+    kernel without a mask."""
+    from ray_tpu_torch.parallel import ring_attention as R
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    Tc = 256
+    q, k, v = (torch.randn(2, Tc, 4, 128, generator=g, device=cuda).to(dtype) for _ in range(3))
+    scale = 128**-0.5
+    q_start = 2 * Tc
+    for k_start, causal, launches in [(3 * Tc, True, 0), (2 * Tc, True, 1), (0, True, 1), (3 * Tc, False, 1)]:
+        A.reset_launch_counts()
+        out, lse = R._flash_chunk(q, k, v, q_start if causal else None, k_start, scale)
+        torch.cuda.synchronize()
+        assert A.launch_counts()["flash_fwd"] == launches, (k_start, causal)
+        want_out, want_lse = R._xla_chunk(q, k, v, q_start, k_start, causal, scale)
+        assert out.dtype == torch.float32 and torch.equal(R._empty(lse), R._empty(want_lse))
+        if launches:
+            _close(out, want_out, dtype, f"out k_start={k_start} causal={causal}")
+            _close(lse, want_lse, dtype, f"lse k_start={k_start} causal={causal}")
+        else:
+            assert not out.any() and R._empty(lse).all()

@@ -23,7 +23,9 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.ops.losses, ray_tpu_torch.ops._build, ray_tpu_torch.models.generate, "
         "ray_tpu_torch.serve, ray_tpu_torch.serve.llm, ray_tpu_torch._private.core_worker, "
         "ray_tpu_torch._private.worker_main, ray_tpu_torch._private.node, ray_tpu_torch.train.torch, "
-        "ray_tpu_torch.train.flagship_loop, ray_tpu_torch.air.execution\n"
+        "ray_tpu_torch.train.flagship_loop, ray_tpu_torch.air.execution, ray_tpu_torch.parallel.mesh, "
+        "ray_tpu_torch.parallel.ring_attention, ray_tpu_torch.parallel.ulysses, ray_tpu_torch.parallel.pipeline, "
+        "ray_tpu_torch.parallel.multichip, ray_tpu_torch.train.torch.checkpointing\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -48,6 +50,10 @@ def _imported_roots(path: Path) -> set[str]:
 def test_no_source_imports_jax_or_ray_tpu():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 5
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    for module in ("parallel/mesh.py", "parallel/ring_attention.py", "parallel/ulysses.py", "parallel/pipeline.py",
+                   "parallel/multichip.py", "train/torch/checkpointing.py", "models/transformer.py", "air/session.py"):
+        assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

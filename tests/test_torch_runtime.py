@@ -113,6 +113,28 @@ def test_placement_group_hosts_an_actor(cluster):
     remove_placement_group(pg)
 
 
+def test_parked_placement_group_is_created_when_resources_return(cluster):
+    """A group that does not fit waits; once the group holding the resources
+    is removed it is created (the GCS retries parked groups when a node's
+    resources change, not only when a node joins: two GPU trainers in turn
+    on one card otherwise left a third waiting forever)."""
+    from ray_tpu_torch.exceptions import PlacementGroupUnavailableError
+
+    holder = placement_group([{"CPU": 4}])
+    parked = None
+    try:
+        assert holder.ready(timeout=60)
+        parked = placement_group([{"CPU": 4}])
+        with pytest.raises(PlacementGroupUnavailableError):
+            parked.ready(timeout=1)
+        remove_placement_group(holder)
+        assert parked.ready(timeout=30)
+    finally:
+        for pg in (holder, parked):
+            if pg is not None:
+                remove_placement_group(pg)
+
+
 def test_kill_ends_the_actor(cluster):
     @rt.remote
     class Sleeper:

@@ -212,8 +212,11 @@ def test_ddp_two_workers_over_gloo(cluster):
 
 
 def test_single_worker_forms_no_group(cluster):
-    """One worker: no process group, no placement group, the model passes
-    through (mirror of tests/test_train_torch.py::test_torch_trainer_single_worker_no_pg)."""
+    """One worker: no placement group, and the model passes through (mirror
+    of tests/test_train_torch.py::test_torch_trainer_single_worker_no_pg);
+    the worker forms a process group of one, so that ``session.get_mesh()``
+    is a mesh: one ``dp`` axis of size 1 (the JAX worker's
+    ``single_axis_mesh("dp")``)."""
 
     def loop(config):
         import torch as _torch
@@ -222,7 +225,7 @@ def test_single_worker_forms_no_group(cluster):
         from ray_tpu_torch.air import session as s
         from ray_tpu_torch.train.torch import prepare_batch, prepare_data_loader, prepare_model
 
-        assert not dist.is_initialized()
+        assert dist.is_initialized() and dist.get_world_size() == 1
         model = prepare_model(_torch.nn.Linear(2, 1))
         dl = prepare_data_loader(
             _torch.utils.data.DataLoader(
@@ -230,19 +233,17 @@ def test_single_worker_forms_no_group(cluster):
             )
         )
         batch = prepare_batch({"x": [[1.0, 2.0]]})
-        try:
-            s.get_mesh()
-            mesh = "built"
-        except NotImplementedError:
-            mesh = "not ported"
+        m = s.get_mesh()
         s.report({"batches": sum(1 for _ in dl), "is_plain": isinstance(model, _torch.nn.Linear),
-                  "batch_device": str(batch["x"].device), "mesh": mesh})
+                  "batch_device": str(batch["x"].device), "mesh": "built" if m is not None else None,
+                  "dp": m.shape["dp"], "axes": m.dim_names, "mesh_device": m.device_type})
 
     from ray_tpu_torch._private.state import GlobalState
 
     before = len(GlobalState().placement_groups())
     result = TorchTrainer(loop, scaling_config=CPU).fit()
-    assert result.metrics == {"batches": 2, "is_plain": True, "batch_device": "cpu", "mesh": "not ported"}
+    assert result.metrics == {"batches": 2, "is_plain": True, "batch_device": "cpu", "mesh": "built", "dp": 1,
+                              "axes": ("dp",), "mesh_device": "cpu"}
     assert len(GlobalState().placement_groups()) == before
 
 

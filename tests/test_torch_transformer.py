@@ -122,13 +122,26 @@ def test_transformer_matches_jax(kv_heads, window, remat, tie):
 
 
 def test_entry_points_refuse_what_is_not_ported():
-    cfg = tt.TransformerConfig(**SMALL)
+    """Without a mesh, ``attn_impl="ring"`` (or ``"ulysses"``) is the flash
+    path, as in the JAX package (its ring branch needs ``sp`` > 1): the same
+    logits as ``"auto"``, bit for bit; sliding-window attention under a ring
+    over sp > 1 still refuses. (tests/test_torch_parallel.py and
+    test_torch_sharded_step.py hold the mesh paths.)"""
+    cfg = tt.TransformerConfig(**dict(SMALL, n_kv_heads=2))
     params = tt.init_params(cfg, device="cpu")
-    tokens = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tt.forward(params, tokens, cfg, attn_impl="ring")
-    with pytest.raises(NotImplementedError):
-        tt.forward(params, tokens, cfg, mesh=object())
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want, _ = tt.forward(params, tokens, cfg)
+        for impl in ("ring", "ulysses"):
+            got, _ = tt.forward(params, tokens, cfg, attn_impl=impl)
+            assert torch.equal(got, want), impl
+
+    class SpMesh:
+        shape = {"pp": 1, "dp": 1, "fsdp": 1, "sp": 2, "ep": 1, "tp": 1}
+
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(NotImplementedError, match="sliding_window"):
+        tt._attend(q, q, q, dataclasses.replace(cfg, sliding_window=4), SpMesh(), "ring")
 
 
 def test_moe_forward_and_loss_match_jax():
