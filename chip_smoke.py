@@ -96,10 +96,37 @@ line:
    AdamW state, equal bit for bit. (The trainer phase also runs the loop on
    the worker's session.get_mesh(): "mesh trainer".)
 
+12. a10: collectives, device objects and compiled graphs in one cluster,
+   ray_tpu_torch.init(num_cpus=4, num_gpus=1). An actor forms a world-1
+   NCCL group (util/collective, backend "nccl"): allreduce, allgather,
+   reducescatter, broadcast and barrier on 4M-element bf16 and f32 CUDA
+   tensors, each result on cuda and equal to its input, ms per call. Weight
+   sync: a holder actor returns the flagship's parameters (seed 0, 168.3M)
+   as one 673 MB f32 CUDA tensor under tensor_transport="collective"; its
+   own resolve is the same data_ptr; device_object.broadcast over a 2-member
+   group, then the consumer's get; one broadcast over a 3-member group to
+   two consumers, then their gets; each copy's bits checked on the card by
+   checksums (no host copy in the driver), on cuda; the store's used bytes
+   flat and no host transfer or host-sync fallback in any process; seconds
+   and GB/s of each handoff. Spill and restore under
+   devobj_resident_limit_bytes (256 MiB), bit for bit. Then the MPMD
+   pipeline (parallel/mpmd_pipeline.py): 2 stage actors of 4 flagship layers
+   each (bf16), the embedding of 16 seeded sequences of 1024 tokens in
+   microbatches of 2, at M = 8 and M = 2: output equal to the driver's
+   in-process composition of the stage function bit for bit, 4 x M
+   forward-kernel launches per stage (each stage's own counters),
+   microbatches/s, bubble fraction, each stage's busy, stall and other
+   (emit) ms and its device span (CUDA events around each run), a hop's
+   bytes and ms, stage_devobj_stats(); no store bytes or host transfers in a
+   steady run; stage 0 alone on one microbatch (issue and finish ms, its
+   kernels' device ms under torch.profiler); teardown leaves no resident
+   device object. An "a10: {...}" line (with each section's seconds); the
+   kernels line's forward row gets "mpmd_launches".
+
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
 Phases run in the order 1-6, 8, 9, 7 (the trainer runs in one cluster), 10,
-11.
+11, 12.
 """
 
 from __future__ import annotations
@@ -1447,6 +1474,382 @@ def parallel_phase(torch, card, main_first_loss, main_step_ms):
     return row, counts
 
 
+# The a10 phase: collectives, device objects and the MPMD pipeline of the
+# flagship's layers (module doc, phase 12).
+A10 = dict(coll_numel=1 << 22, coll_iters=5, stages=2, batch=16, microbatch=2, runs=(8, 2),
+           spill_limit=256 << 20, actor_gpus=0.25, alone_iters=5)
+
+
+def _bits_checksum(torch, t) -> list:
+    """Two int64 sums of a tensor's bits on its own device (plain and
+    position-weighted), so two processes can compare a large tensor without
+    a host copy."""
+    width = {4: torch.int32, 2: torch.int16}[t.element_size()]
+    i = t.detach().reshape(-1).view(width).to(torch.int64)
+    w = torch.arange(i.numel(), device=i.device, dtype=torch.int64) % 65521 + 1
+    return [int(i.sum()), int((i * w).sum())]
+
+
+def mpmd_stage(params, h, cfg):
+    """One MPMD stage: the flagship's layers (models/transformer.py _layer)
+    over its slice of the stacked layer weights, rotary tables from T."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tt
+
+    # As the driver's device phase sets: f32 products in full f32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cos, sin = tt._rope_tables(torch.arange(h.shape[1], device=h.device)[None], cfg.head_dim, cfg.rope_theta)
+    for i in range(next(iter(params.values())).shape[0]):
+        h = tt._layer({n: w[i] for n, w in params.items()}, h, cos, sin, cfg)[0]
+    return h
+
+
+def _a10_actor_class(rt):
+    @rt.remote(tensor_transport="collective")
+    class A10Actor:
+        """A collective-group member, a device-object holder and a consumer."""
+
+        def __init__(self, device):
+            import torch
+
+            self.device = torch.device(device)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(0)
+            self.flat = None
+
+        def pid(self):
+            return os.getpid()
+
+        def init_collective(self, world, rank, backend, group):
+            from ray_tpu_torch.util import collective as col
+
+            col.init_collective_group(world, rank, backend=backend, group_name=group)
+
+        def collectives(self, group, numel, iters):
+            """Each verb on bf16 and f32 tensors of this group's device (world
+            1: every result equals its input); ms per call, the mean of
+            ``iters`` after a first call."""
+            import torch
+
+            from ray_tpu_torch.util import collective as col
+
+            rows = []
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn(numel, generator=torch.Generator(device=self.device).manual_seed(3),
+                                device=self.device).to(dt)
+                verbs = {
+                    "allreduce": (lambda: col.allreduce(x, group), x),
+                    "allgather": (lambda: col.allgather(x, group), x[None]),
+                    "reducescatter": (lambda: col.reducescatter(x[None], group), x),
+                    "broadcast": (lambda: col.broadcast(x, 0, group), x),
+                    "barrier": (lambda: col.barrier(group), None),
+                }
+                for verb, (fn, want) in verbs.items():
+                    out = fn()
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for _ in range(iters):
+                        fn()
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t) * 1e3 / iters
+                    ok = want is None or (torch.equal(out, want) and out.device == x.device)
+                    rows.append({"verb": verb, "dtype": str(dt).removeprefix("torch."), "numel": numel, "ms": ms,
+                                 "device": None if out is None else str(out.device), "ok": bool(ok)})
+            return rows
+
+        def make_weights(self, cfg):
+            """The flagship's parameters from seed 0, flattened to one f32
+            tensor: returned under tensor_transport, it stays here."""
+            import torch
+
+            from ray_tpu_torch.models import transformer as tt
+
+            params = tt.init_params(cfg, seed=0, device=self.device)
+            self.flat = torch.cat([p.detach().reshape(-1).float() for p in tt.param_leaves(params)])
+            return self.flat
+
+        def same_ptr(self, refs):
+            return rt.get(refs[0]).data_ptr() == self.flat.data_ptr()
+
+        def checksum(self):
+            import torch
+
+            return _bits_checksum(torch, self.flat)
+
+        def take(self, refs):
+            import torch
+
+            t = time.perf_counter()
+            v = rt.get(refs[0])
+            if v.device.type == "cuda":
+                torch.cuda.synchronize()
+            return {"s": time.perf_counter() - t, "checksum": _bits_checksum(torch, v), "device": str(v.device),
+                    "nbytes": v.numel() * v.element_size()}
+
+        def spill_restore(self, freed, limit):
+            """Put the weights again, this actor as their owner (a borrower
+            would read a spilled copy from its node's arena directly), once
+            the driver's ref ``freed`` is released here; lower the resident
+            limit below them and put a small device object (they spill to
+            the arena); then resolve them again (restored onto the device)."""
+            import torch
+
+            from ray_tpu_torch._private import worker_context
+            from ray_tpu_torch.experimental.device_object import device_object_stats
+            from ray_tpu_torch.experimental.device_object.manager import active_manager
+
+            deadline = time.monotonic() + 30
+            while active_manager().entry(freed) is not None and time.monotonic() < deadline:
+                time.sleep(0.01)
+            own = rt.put(self.flat, tensor_transport="collective")
+            want = _bits_checksum(torch, self.flat)
+            self.flat = None  # the manager's entry holds the only reference
+            before = device_object_stats()
+            cfg = worker_context.get_core_worker().cfg
+            cfg.devobj_resident_limit_bytes = limit
+            try:
+                small = rt.put(torch.ones(1, device=self.device), tensor_transport="collective")
+                spilled = device_object_stats()
+                t = time.perf_counter()
+                v = rt.get(own)
+                if v.device.type == "cuda":
+                    torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t
+                del small
+            finally:
+                cfg.devobj_resident_limit_bytes = 0
+            after = device_object_stats()
+            return {"spilled_count": spilled["spilled_count"], "spills": spilled["spills"] - before["spills"],
+                    "restores": after["restores"] - before["restores"], "restore_s": restore_s,
+                    "equal": _bits_checksum(torch, v) == want, "device": str(v.device)}
+
+        def stats(self):
+            from ray_tpu_torch.experimental.device_object import device_object_stats
+            from ray_tpu_torch.util.collective.p2p import COLL
+
+            return {**device_object_stats(), "host_sync_fallbacks": COLL.host_sync_fallbacks,
+                    "bcast_recvs": COLL.bcast_recvs}
+
+    return A10Actor
+
+
+def _a10_weight_sync(torch, rt, dobj, col, Actor, cfg, device, store, failures):
+    """Collectives on a world-1 group, then the flagship's weights as one
+    device object: holder resolve, one consumer, a two-consumer broadcast,
+    spill and restore."""
+    opts = {"num_gpus": A10["actor_gpus"]} if device == "cuda" else {}
+    actors = [Actor.options(**opts).remote(device) for _ in range(3)]
+    h, a, b = actors
+    pids = set(rt.get([x.pid.remote() for x in actors], timeout=300))
+    backend = "nccl" if device == "cuda" else "gloo"
+    rt.get(h.init_collective.remote(1, 0, backend, "world1"), timeout=120)
+    coll = rt.get(h.collectives.remote("world1", A10["coll_numel"], A10["coll_iters"]), timeout=300)
+    for r in coll:
+        print(f"{backend} world 1 {r['verb']:>13} {r['dtype']:>8} [{r['numel']}]: {r['ms']:.3f} ms, "
+              f"result on {r['device']}, equal to the input: {r['ok']}")
+    failures += [f"{backend} {r['verb']} {r['dtype']} differs or left {device}" for r in coll
+                 if not r["ok"] or (r["device"] is not None and not r["device"].startswith(device))]
+    col.create_collective_group([h, a], backend="cpu", group_name="pair")
+    col.create_collective_group([h, a, b], backend="cpu", group_name="fan")
+    ref = h.make_weights.remote(cfg)
+    want = rt.get(h.checksum.remote(), timeout=300)
+    same_ptr = rt.get(h.same_ptr.remote([ref]), timeout=60)
+    used0 = store.usage()["used"]
+    t = time.perf_counter()
+    dobj.broadcast(ref, "pair", timeout=120)
+    one = rt.get(a.take.remote([ref]), timeout=300)
+    one_s = time.perf_counter() - t
+    t = time.perf_counter()
+    fan = dobj.broadcast(ref, "fan", timeout=120)
+    two = rt.get([a.take.remote([ref]), b.take.remote([ref])], timeout=300)
+    fan_s = time.perf_counter() - t
+    store_bytes = store.usage()["used"] - used0
+    stats = rt.get([x.stats.remote() for x in actors], timeout=60)
+    nbytes = one["nbytes"]
+    print(f"weights: {nbytes / 1e6:.1f} MB f32 ({nbytes // 4} params) held on the holder's {device}; holder resolve "
+          f"returns the same data_ptr: {same_ptr}")
+    print(f"one consumer (broadcast over a 2-member group, then get): {one_s:.3f} s, {nbytes / one_s / 1e9:.2f} GB/s "
+          f"(of which the consumer's get {one['s']:.3f} s); bits equal: {one['checksum'] == want}, on {one['device']}")
+    print(f"two consumers (one broadcast over a 3-member group, then two gets): {fan_s:.3f} s, "
+          f"{2 * nbytes / fan_s / 1e9:.2f} GB/s delivered; ranks {fan.get('ok_ranks')}; bits equal: "
+          f"{[x['checksum'] == want for x in two]}, on {[x['device'] for x in two]}")
+    print(f"store bytes added over the handoffs: {store_bytes}; holder/consumers transfers_host "
+          f"{[s['transfers_host'] for s in stats]}, host_sync_fallbacks {[s['host_sync_fallbacks'] for s in stats]}, "
+          f"bcast_recvs {[s['bcast_recvs'] for s in stats]}")
+    if not same_ptr:
+        failures.append("the holder's own resolve is not the live tensor")
+    if one["checksum"] != want or any(x["checksum"] != want for x in two):
+        failures.append("a consumer's copy of the weights differs from the holder's")
+    if not all(x["device"].startswith(device) for x in [one] + two):
+        failures.append(f"a consumer's copy is not on {device}")
+    if store_bytes != 0 or any(s["transfers_host"] or s["host_sync_fallbacks"] for s in stats):
+        failures.append("a handoff went through the store or a host fallback")
+    oid = ref.hex()
+    del ref
+    spill = rt.get(h.spill_restore.remote(oid, A10["spill_limit"]), timeout=300)
+    print(f"spill and restore under devobj_resident_limit_bytes={A10['spill_limit']}: spilled {spill['spilled_count']} "
+          f"({spill['spills']} spill), restored {spill['restores']} in {spill['restore_s']:.3f} s onto "
+          f"{spill['device']}, bits equal: {spill['equal']}")
+    if not (spill["spills"] == 1 and spill["restores"] == 1 and spill["equal"] and spill["device"].startswith(device)):
+        failures.append(f"spill and restore: {spill}")
+    for x in actors:
+        rt.kill(x)
+    return pids, {"collectives": coll, "bytes": nbytes, "one_s": one_s, "one_gbps": nbytes / one_s / 1e9,
+                  "fan_s": fan_s, "fan_gbps": 2 * nbytes / fan_s / 1e9, "store_bytes": store_bytes,
+                  "transfers_host": sum(s["transfers_host"] for s in stats),
+                  "host_sync_fallbacks": sum(s["host_sync_fallbacks"] for s in stats),
+                  "restore_s": spill["restore_s"]}
+
+
+def _a10_mpmd(torch, rt, dobj, cfg, device, store, failures):
+    """The flagship's 8 layers as a 2-stage MPMD pipeline, held to the
+    in-process composition; returns the stages' forward-kernel launches."""
+    import functools
+
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.parallel.mpmd_pipeline import mpmd_pipeline
+
+    S, T = A10["stages"], MAIN["T"]
+    params = tt.init_params(cfg, seed=0, device=device)
+    stacked = {n: w.reshape(S, cfg.n_layers // S, *w.shape[1:]) for n, w in params["layers"].items()}
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (A10["batch"], T + 1), generator=g, device=device)[:, :T]
+    x = params["embed"].to(cfg.dtype)[tokens]
+    stage = functools.partial(mpmd_stage, cfg=cfg)
+    t = time.perf_counter()
+    pipe = mpmd_pipeline(stage, stacked, num_microbatches=A10["runs"][0], warmup_x=x[:A10["microbatch"]],
+                         device=device)
+    build_s = time.perf_counter() - t
+    pids = set(rt.get([s.pid.remote() for s in pipe.stages], timeout=60))
+    with torch.no_grad():
+        per_stage = [{n: w[k] for n, w in stacked.items()} for k in range(S)]
+        ref = []
+        for xm in x.split(A10["microbatch"]):
+            for p in per_stage:
+                xm = stage(p, xm)
+            ref.append(xm)
+        ref = torch.cat(ref)
+    pipe.apply(x[:2 * A10["microbatch"]], num_microbatches=2)  # the compiled loops' first iteration
+    rt.get([s.time_device.remote(device == "cuda") for s in pipe.stages], timeout=60)
+    runs, launches = [], 0
+    for M in A10["runs"]:
+        xs = x[:M * A10["microbatch"]]
+        rt.get([s.reset_launch_counts.remote() for s in pipe.stages], timeout=60)
+        pipe.reset_stage_stats()
+        dev0, drv0, used0 = pipe.stage_devobj_stats(), dobj.device_object_stats(), store.usage()["used"]
+        t = time.perf_counter()
+        y = pipe.apply(xs, num_microbatches=M)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        dev1, drv1, used1 = pipe.stage_devobj_stats(), dobj.device_object_stats(), store.usage()["used"]
+        rows, bubble = pipe.stage_stats(), pipe.bubble_fraction()
+        counts = [c["flash_fwd"] for c in rt.get([s.launch_counts.remote() for s in pipe.stages], timeout=60)]
+        spans = rt.get([s.device_spans.remote() for s in pipe.stages], timeout=60)
+        equal = torch.equal(y, ref[:xs.shape[0]])
+        hop_bytes = xs[:A10["microbatch"]].numel() * xs.element_size()
+        hop_ms = rows[-1]["resolve_ns"] / max(1, rows[-1]["iters"]) / 1e6
+        host = sum(b["transfers_host"] - a["transfers_host"] for a, b in zip(dev0 + [drv0], dev1 + [drv1]))
+        run = {"M": M, "s": dt, "microbatches_per_s": M / dt, "bubble": bubble,
+               "stages": [{"busy_ms": r["busy_ns"] / 1e6, "stall_ms": r["stall_ns"] / 1e6,
+                           "resolve_ms": r["resolve_ns"] / 1e6, "iters": r["iters"],
+                           # The loop's time outside the stage call and its
+                           # input reads: the output's emit (waiting for the
+                           # kernels, the device-to-host copy, the frames).
+                           "other_ms": dt * 1e3 - (r["busy_ns"] + r["stall_ns"]) / 1e6,
+                           "device_span_ms": sum(sp) if sp else None, "device_spans": len(sp)}
+                          for r, sp in zip(rows, spans)],
+               "hop_bytes": hop_bytes, "hop_ms": hop_ms, "flash_fwd": counts, "equal": equal,
+               "store_bytes": used1 - used0, "transfers_host": host, "devobj": dev1}
+        runs.append(run)
+        print(f"mpmd M={M} ({xs.shape[0]} x {T} tokens, microbatches of {A10['microbatch']}): {dt * 1e3:.1f} ms, "
+              f"{M / dt:.1f} microbatches/s, bubble fraction {bubble:.3f}; stages busy/stall ms "
+              f"{[(round(r['busy_ms'], 2), round(r['stall_ms'], 2)) for r in run['stages']]}; a hop {hop_bytes} B in "
+              f"{hop_ms:.3f} ms (stage 1's resolve); forward-kernel launches per stage {counts}; output equal to "
+              f"the in-process composition bit for bit: {equal}; store bytes added {used1 - used0}, host "
+              f"transfers {host}")
+        print(f"mpmd M={M} per stage, ms a microbatch: busy (issuing the stage) "
+              f"{[round(r['busy_ms'] / M, 2) for r in run['stages']]}, stall "
+              f"{[round(r['stall_ms'] / M, 2) for r in run['stages']]}, other (the output's emit: waiting for the "
+              f"kernels, the device-to-host copy, the frames) {[round(r['other_ms'] / M, 2) for r in run['stages']]}; "
+              f"device span of a run (CUDA events around it: first operation to last, gaps included) "
+              f"{[None if r['device_span_ms'] is None else round(r['device_span_ms'] / r['device_spans'], 2) for r in run['stages']]}")
+        print(f"mpmd M={M} stage_devobj_stats: {dev1}")
+        if not equal:
+            failures.append(f"mpmd M={M}: the pipeline's output differs from the in-process composition")
+        want = [cfg.n_layers // S * M] * S if device == "cuda" else [0] * S
+        if counts != want:
+            failures.append(f"mpmd M={M}: stages launched the forward kernel {counts} times, expected {want}")
+        if used1 != used0 or host:
+            failures.append(f"mpmd M={M}: {used1 - used0} store bytes and {host} host transfers in a steady run")
+        launches += sum(counts)
+    rt.get([s.time_device.remote(False) for s in pipe.stages], timeout=60)
+    # Stage 0 alone, stage 1 idle (both run the same shapes; a profiler's
+    # start costs ~10 s in each process it runs in).
+    t = time.perf_counter()
+    alone = rt.get(pipe.stages[0].time_alone.remote(x[:A10["microbatch"]], A10["alone_iters"]), timeout=120)
+    kernel = ("not measured" if alone["kernel_ms"] is None
+              else f"{alone['kernel_ms']:.3f} ms ({alone['ops']:.0f} device operations)")
+    print(f"mpmd stage 0 alone, {A10['alone_iters']} runs of one microbatch, each finished before the next: "
+          f"issue {alone['issue_ms']:.3f} ms, finished {alone['wall_ms']:.3f} ms a run; kernels and copies under "
+          f"torch.profiler {kernel} a run")
+    alone_s = time.perf_counter() - t
+    pipe.teardown(kill_actors=False)
+    left = [s["resident_count"] for s in pipe.stage_devobj_stats()] + [dobj.device_object_stats()["resident_count"]]
+    print(f"after teardown: resident device objects per stage and in the driver {left}")
+    if any(left):
+        failures.append(f"teardown left resident device objects {left}")
+    for s in pipe.stages:
+        rt.kill(s)
+    return pids, launches, {"build_s": build_s, "runs": runs, "alone": alone, "alone_s": alone_s,
+                            "resident_after_teardown": left}
+
+
+def a10_phase(torch, device="cuda", cfg=None):
+    """Collectives, device objects and the MPMD pipeline (module doc, phase
+    12); returns the MPMD stages' forward-kernel launches."""
+    _phase("a10")
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.experimental import device_object as dobj
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.util import collective as col
+
+    cfg = cfg or tt.TransformerConfig(
+        vocab_size=32000, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8, d_ff=2816,
+        max_seq_len=1024, dtype=torch.bfloat16, param_dtype=torch.float32, remat=False, fused_loss=False)
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1 if device == "cuda" else 0, object_store_memory=2 << 30)
+    failures, pids = [], set()
+    try:
+        store = rt._global_node.raylet.store
+        marks = [time.perf_counter()]
+        p1, sync = _a10_weight_sync(torch, rt, dobj, col, _a10_actor_class(rt), cfg, device, store, failures)
+        marks.append(time.perf_counter())
+        p2, launches, mpmd = _a10_mpmd(torch, rt, dobj, cfg, device, store, failures)
+        marks.append(time.perf_counter())
+        pids = p1 | p2
+    finally:
+        rt.shutdown()
+    sections = {"init": marks[0] - t0, "weight_sync": marks[1] - marks[0], "mpmd": marks[2] - marks[1],
+                "shutdown": time.perf_counter() - marks[2]}
+    print("a10 sections, s: " + ", ".join(f"{k} {v:.1f}" for k, v in sections.items())
+          + f" (mpmd: stage 0 alone {mpmd['alone_s']:.1f})")
+    deadline = time.monotonic() + 30
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = sorted(p for p in pids if _alive(p))
+    if left:
+        failures.append(f"actor processes {left} outlived shutdown()")
+    print("a10: " + json.dumps({"weight_sync": sync, "mpmd": mpmd, "mpmd_launches": launches,
+                                "sections_s": sections, "phase_s": time.perf_counter() - t0}))
+    if failures:
+        raise AssertionError("a10: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1472,6 +1875,7 @@ def main() -> int:
     for row in kernels[:3]:
         row["parallel_launches"] = parallel_counts[row["name"]]
     kernels.append(ring_row)
+    kernels[0]["mpmd_launches"] = a10_phase(torch)
     print(f"script wall time {time.perf_counter() - t0:.1f} s (from the device phase; imports before it)")
     print(smi)
     print(json.dumps({"kernels": kernels}))

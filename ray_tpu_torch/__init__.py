@@ -253,9 +253,12 @@ def put(value, *, tensor_transport: str | None = None) -> ObjectRef:
     """Store ``value`` and return an ObjectRef.
 
     A ``torch.Tensor`` is stored as host bytes (a CUDA tensor through one
-    copy to the host) and comes back on the same device index. Any
-    ``tensor_transport=`` raises ``NotImplementedError``: the device-object
-    plane is not ported (ROADMAP A10).
+    copy to the host) and comes back on the same device index.
+    ``tensor_transport="collective"`` keeps a plain tensor resident on this
+    process's device instead (experimental/device_object/): only a small
+    descriptor enters the store, and ``get`` resolves it out of band — the
+    live tensor in this process, a copy on the consumer's device elsewhere.
+    A DTensor raises ``TypeError`` (ROADMAP A9f).
     """
     from ray_tpu_torch._private import worker_context
 

@@ -181,6 +181,23 @@ class Config:
     # --- metrics ---
     metrics_flush_interval_s: float = 5.0
 
+    # --- compiled-graph channel plane (experimental/channel/) ---
+    # Blocked channel readers are woken by the producer's doorbell frame;
+    # this is the FALLBACK re-poll cap for a lost doorbell. Readers back off
+    # exponentially from a few ms up to this cap while idle, and a doorbell
+    # always wakes them at once. Env: RAY_TPU_TORCH_CHANNEL_POLL_INTERVAL_MS.
+    channel_poll_interval_ms: int = 50
+
+    # --- collectives ---
+    collective_rendezvous_timeout_s: float = 60.0
+
+    # --- device object plane (experimental/device_object/) ---
+    # Per-process ceiling on device-resident object bytes; past it the
+    # holder spills LRU tensors device->host into the shm arena (restored
+    # on the next local resolve). 0 = no ceiling.
+    # Env: RAY_TPU_TORCH_DEVOBJ_RESIDENT_LIMIT_BYTES.
+    devobj_resident_limit_bytes: int = 0
+
     # --- misc ---
     # Sessions, the driver's logs and default results live under the
     # process's temporary directory (TMPDIR), never at a fixed path.

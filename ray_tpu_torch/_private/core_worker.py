@@ -31,6 +31,7 @@ import contextvars
 import hashlib
 import logging
 import os
+import sys
 import threading
 import time
 from concurrent.futures import Future as ConcurrentFuture
@@ -66,6 +67,18 @@ _exec_ctx: contextvars.ContextVar = contextvars.ContextVar("ray_tpu_exec_ctx", d
 
 DRIVER = "driver"
 WORKER = "worker"
+
+
+def _is_device_tensor(obj) -> bool:
+    """True iff obj is a top-level plain ``torch.Tensor`` (neither a DTensor
+    nor another subclass), on any device — the values ``tensor_transport=``
+    keeps resident (the JAX package's ``_maybe_jax_array``). The module-name
+    probe keeps torch out of processes whose values are not tensors."""
+    if not type(obj).__module__.startswith("torch"):
+        return False
+    import torch
+
+    return type(obj) is torch.Tensor
 
 
 @dataclass
@@ -108,6 +121,11 @@ class OwnedObject:
     # handoff, reference_count.h). The producer increfs each on our behalf;
     # we decref them when this object itself is freed.
     contained: list = field(default_factory=list)  # [(oid hex, owner addr)]
+    # Device object (experimental/device_object/): the payload lives on the
+    # HOLDER process's device, only a descriptor is stored here.
+    # {"addr": [h, p], "id": holder id} — freeing this object releases the
+    # holder's device buffers through the ownership protocol.
+    device: dict | None = None
 
 
 class CoreWorker:
@@ -214,8 +232,23 @@ class CoreWorker:
         # serial loop ticks + two thread handoffs per sync call).
         self._sync_waiters: dict[str, list] = {}
         self._owner_client_cache: dict[tuple, RpcClient] = {}
-        # Not ported yet (ROADMAP A10): the compiled-graph channel registry
-        # and the p2p inbox, relays and streams the JAX package builds here.
+        # Compiled-graph channel plane (experimental/channel/): reader gates
+        # for every channel this process consumes; the rpc_channel_* handlers
+        # below dispatch doorbells / side-channel chunks / poison into it.
+        from ray_tpu_torch.experimental.channel.channel import ChannelRegistry
+
+        self.channels = ChannelRegistry()
+        # Direct p2p mailbox (util/collective/p2p.py): landing zone for
+        # eager-pushed channel payloads (descriptor slots resolve from it
+        # without a pull round trip) — rpc_p2p_data deposits into it.
+        from ray_tpu_torch.util.collective.p2p import ChunkStreams, P2PInbox, RelayTable
+
+        self.p2p_inbox = P2PInbox()
+        # Tree-collective planes: relay sessions forwarding broadcast
+        # chunks down the binomial tree (cut-through), and reduce partial
+        # streams combined chunk-at-a-time at each hop.
+        self.p2p_relays = RelayTable()
+        self.p2p_streams = ChunkStreams()
         self.pending_tasks: dict[str, PendingTask] = {}
         # Tombstones for cancelled tasks that may not have reached this
         # process yet (cancel racing submission); checked at execution
@@ -275,6 +308,19 @@ class CoreWorker:
         self._actor_instance = None
         self._actor_id: str | None = None
         self._actor_creation_spec: TaskSpec | None = None
+        # Device object plane (experimental/device_object/): tensor_transport
+        # declared by this actor's class (tensor returns stay
+        # device-resident); the manager is created on first device put/return.
+        self._tensor_transport: str = ""
+        self._device_objects = None
+        # Short-connect clients for devobj_pull: a dead holder must surface
+        # as DeviceObjectLostError in seconds, not after the default
+        # connect budget (same rationale as _actor_client's 2s timeout).
+        self._devobj_clients: dict[tuple, RpcClient] = {}
+        # The CUDA device this actor's own thread made current (recorded
+        # after its constructor ran): a resident channel loop's thread sets
+        # it, since the current device is per thread.
+        self._cuda_device: int | None = None
         self._actor_exec_queue: asyncio.Queue | None = None
         self._actor_concurrency_pool: ThreadPoolExecutor | None = None
         self._actor_async_loop: asyncio.AbstractEventLoop | None = None
@@ -885,12 +931,97 @@ class CoreWorker:
 
     def put(self, value, tensor_transport: str | None = None) -> "object":
         if tensor_transport:
-            raise NotImplementedError(
-                "put(tensor_transport=...) needs the device-object plane, which the "
-                "port does not have yet (ROADMAP A10)"
-            )
+            return self.put_device(value, tensor_transport)
         ser = serialization.serialize(value)
         return self.put_serialized(ser)
+
+    # ---- device object plane (experimental/device_object/) ----
+
+    def _device_manager(self):
+        mgr = self._device_objects
+        if mgr is None:
+            from ray_tpu_torch.experimental.device_object.manager import DeviceObjectManager
+
+            with self._lock:
+                if self._device_objects is None:
+                    self._device_objects = DeviceObjectManager(self)
+                mgr = self._device_objects
+        return mgr
+
+    def _holder_identity(self) -> tuple[str, str]:
+        if self._actor_id:
+            return self._actor_id, "actor"
+        return self.worker_id, "driver" if self.mode == DRIVER else "worker"
+
+    def put_device(self, value, transport: str):
+        """put() with tensor_transport=: the tensor stays resident on this
+        process's device; only a small descriptor enters the store.
+        The returned ObjectRef is first-class (refcounted/waitable/passable)
+        and resolves out of band (same-process live tensor / collective p2p /
+        host fallback — see experimental/device_object/resolve.py)."""
+        from ray_tpu_torch.experimental.device_object.descriptor import validate_transport
+        from ray_tpu_torch.experimental.device_object.manager import refuse_sharded
+        from ray_tpu_torch.object_ref import ObjectRef
+
+        validate_transport(transport)
+        refuse_sharded(value)
+        if not _is_device_tensor(value):
+            raise TypeError(
+                "tensor_transport= requires a top-level torch.Tensor, got "
+                f"{type(value).__name__}; use a plain put() for host values"
+            )
+        oid = ObjectID.for_put(self.current_task_id)
+        oid_hex = oid.hex()
+        holder_id, holder_kind = self._holder_identity()
+        meta = self._device_manager().create_resident(oid_hex, value, transport, holder_id, holder_kind)
+        data = serialization.serialize(meta).to_bytes()
+        with self._lock:
+            entry = self.owned.setdefault(oid_hex, OwnedObject())
+            entry.device = {"addr": list(self.address), "id": holder_id}
+            self.in_process_store[oid_hex] = {"data": data, "value": meta}
+        self._set_event(oid_hex)
+        return ObjectRef(oid, self.address)
+
+    def _package_device(self, oid_hex: str, value) -> list:
+        """Actor-task return under tensor_transport=: keep the tensor here
+        (this actor is the holder), ship the descriptor as the inline result
+        plus the holder coordinates the owner's refcounting needs."""
+        holder_id, holder_kind = self._holder_identity()
+        meta = self._device_manager().create_resident(
+            oid_hex, value, self._tensor_transport, holder_id, holder_kind
+        )
+        data = serialization.serialize(meta).to_bytes()
+        return [oid_hex, "inline", data, [], {"addr": list(self.address), "id": holder_id}]
+
+    def _devobj_client(self, addr: tuple) -> RpcClient:
+        """Cached connection to a device-object holder with a SHORT connect
+        timeout: resolution probes holders that may be dead, and the typed
+        loss must surface quickly (the host-copy fallback runs after it)."""
+        with self._lock:
+            client = self._devobj_clients.get(addr)
+            if client is None:
+                client = RpcClient(addr, label=f"devobj-{addr}", connect_timeout=2.0)
+                self._devobj_clients[addr] = client
+            return client
+
+    @any_thread
+    def _free_device_object(self, oid: str, dev: dict):
+        """Owner-side release reached zero refs: tell the holder to drop the
+        device buffers (and any host copy it spilled)."""
+        addr = tuple(dev.get("addr") or ())
+        if addr == tuple(self.address):
+            mgr = self._device_objects
+            if mgr is not None:
+                mgr.free(oid)
+            return
+
+        async def _push():
+            try:
+                await self._owner_client(addr).apush("devobj_free", {"object_id": oid})
+            except Exception:
+                pass
+
+        self._io.spawn(_push())
 
     def put_serialized(self, ser: serialization.SerializedObject):
         from ray_tpu_torch.object_ref import ObjectRef
@@ -994,7 +1125,37 @@ class CoreWorker:
             raise GetTimeoutError("ray_tpu_torch.get() timed out")
         return rem
 
+    @blocking
+    def get_device_meta(self, ref, timeout: float | None = None):
+        """The RAW DeviceObjectMeta behind a device-object ref, WITHOUT
+        resolving the payload (device_object.broadcast needs the holder
+        coordinates, not the tensor). Waits for the descriptor to
+        materialize exactly like get(); raises TypeError for refs that are
+        not device objects."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        value = self._get_one_raw(ref, deadline)
+        self._raise_if_error(value)
+        if type(value).__name__ == "DeviceObjectMeta":
+            return value
+        raise TypeError(
+            f"object {ref.hex()[:12]} is not a device object (resolved to "
+            f"{type(value).__name__}); group broadcast applies to "
+            "tensor_transport= refs"
+        )
+
     def _get_one(self, ref, deadline):
+        value = self._get_one_raw(ref, deadline)
+        # Device object descriptors resolve out of band (live tensor /
+        # collective transfer / host fallback). Name probe first so the
+        # ordinary get path never imports the device plane.
+        if type(value).__name__ == "DeviceObjectMeta":
+            from ray_tpu_torch.experimental.device_object import DeviceObjectMeta, resolve_meta
+
+            if isinstance(value, DeviceObjectMeta):
+                return resolve_meta(self, value, deadline)
+        return value
+
+    def _get_one_raw(self, ref, deadline):
         oid_hex = ref.hex()
         is_owner = ref.owner_addr is None or tuple(ref.owner_addr) == tuple(self.address)
         attempts = 0
@@ -1254,10 +1415,9 @@ class CoreWorker:
     def create_actor(self, cls, args, kwargs, **opts):
         actor_id = ActorID.of(self.job_id)
         if opts.get("tensor_transport"):
-            raise NotImplementedError(
-                "actors with tensor_transport= need the device-object plane, which the "
-                "port does not have yet (ROADMAP A10)"
-            )
+            from ray_tpu_torch.experimental.device_object.descriptor import validate_transport
+
+            validate_transport(opts["tensor_transport"])
         wire_args, arg_refs = self._prepare_args(args, kwargs or {})
         spec = TaskSpec(
             task_id=TaskID.for_task(actor_id).hex(),
@@ -1284,6 +1444,7 @@ class CoreWorker:
             scheduling_strategy=opts.get("scheduling_strategy", "DEFAULT"),
             runtime_env=self._merged_runtime_env(opts.get("runtime_env")),
             trace_ctx=self._trace_ctx(),
+            tensor_transport=opts.get("tensor_transport") or "",
         )
         for ref in arg_refs:
             self._pin_arg(ref)
@@ -1819,6 +1980,11 @@ class CoreWorker:
             obj = self.owned.setdefault(oid, OwnedObject())
             if contained:
                 obj.contained = contained
+            if len(result) > 4 and result[4]:
+                # A device-object item must never lose its holder
+                # coordinates — that's the free protocol (see
+                # _handle_task_done).
+                obj.device = result[4]
             if kind == "inline":
                 self.in_process_store[oid] = {"data": data}
             else:
@@ -1943,6 +2109,10 @@ class CoreWorker:
                 obj = self.owned.setdefault(oid, OwnedObject())
                 if contained:
                     obj.contained = contained
+                if len(result) > 4 and result[4]:
+                    # Device object: result is a descriptor; the holder's
+                    # coordinates drive the free-on-last-ref protocol.
+                    obj.device = result[4]
                 if kind == "inline":
                     self.in_process_store[oid] = {"data": data}
                 else:  # plasma
@@ -1993,6 +2163,243 @@ class CoreWorker:
                 self._fail_task(task_id, OutOfMemoryError(message))
             else:
                 self._fail_task(task_id, WorkerCrashedError(message))
+        return {"ok": True}
+
+    # ---- device object plane (experimental/device_object/) ----
+
+    async def rpc_devobj_pull(self, req):
+        """Consumer asks the holder for a device object's payload. Decides
+        the transfer in one round trip: a shared collective group (named by
+        the consumer) kicks off a p2p send the consumer recv()s; otherwise
+        small tensors ship inline and large ones are sealed into this node's
+        arena under the same object id for the store pull path."""
+        mgr = self._device_objects
+        oid = req["object_id"]
+        entry = mgr.entry(oid) if mgr is not None else None
+        if entry is None:
+            return {"kind": "missing"}
+        loop = asyncio.get_event_loop()
+        dkey = req.get("direct_key")
+        if dkey is not None:
+            # Direct-mailbox reply (serve.llm KV handoff / prefix tier): the
+            # consumer named its own inbox key in the request, so ONE round
+            # trip decides the transfer and the payload streams straight to
+            # its p2p inbox — no group membership, no store seal, no arena
+            # copy. Serialization runs off-loop; the entry may be freed
+            # concurrently (LRU eviction racing an import), in which case
+            # host_bytes reads None and the consumer gets a typed miss —
+            # never a torn payload.
+            data = await loop.run_in_executor(None, mgr.host_bytes, oid)
+            if data is None:
+                return {"kind": "missing"}
+            from ray_tpu_torch.util.collective.p2p import direct_send
+
+            direct_send(self, tuple(req["direct_addr"]), dkey, data)
+            return {"kind": "direct", "nbytes": len(data)}
+        group = req.get("group")
+        if group is not None and entry.meta.transport == "collective":
+            from ray_tpu_torch.util.collective import get_group, is_group_initialized
+
+            if is_group_initialized(group):
+                src_rank = get_group(group).rank
+                # Send on an executor thread: serialization + the mailbox
+                # round trips must not stall this process's IO loop.
+                loop.run_in_executor(
+                    None, mgr.send_via_group, oid, group, req["dst_rank"], req["tag"]
+                )
+                return {"kind": "collective", "group": group, "src_rank": src_rank}
+        # Spilled entries already have an arena copy under this oid: point
+        # the consumer at the store instead of restoring device-side just to
+        # re-serialize (the restore would also re-pin memory that pressure
+        # evicted).
+        if (
+            entry.array is not None
+            and entry.meta.nbytes <= self.cfg.max_direct_call_object_size
+        ):
+            data = await loop.run_in_executor(None, mgr.host_bytes, oid)
+            if data is not None:
+                return {"kind": "inline", "data": data}
+        ok = await loop.run_in_executor(None, mgr.materialize_to_store, oid)
+        if ok:
+            return {"kind": "plasma", "location": self.node_id}
+        return {"kind": "missing"}
+
+    async def rpc_devobj_free(self, req):
+        """Owner's last ref dropped: release the device buffers here."""
+        mgr = self._device_objects
+        if mgr is not None:
+            mgr.free(req["object_id"])
+        return {"ok": True}
+
+    async def rpc_devobj_release(self, req):
+        """A channel-payload consumer resolved its descriptor slot: drop
+        one pin; the last pin frees (device_envelope.release)."""
+        mgr = self._device_objects
+        if mgr is not None:
+            mgr.release_pin(req["object_id"])
+        return {"ok": True}
+
+    async def rpc_p2p_data(self, req):
+        """Direct-mailbox payload chunk (one-way): an eager-pushed channel
+        payload or any address-directed p2p transfer lands here for a
+        blocked direct_recv to take. A channel payload's deposit doubles as
+        the channel doorbell (the producer skipped the separate wakeup
+        frame: the payload lands right after the slot publish, so ONE frame
+        both delivers the bytes and wakes the blocked reader)."""
+        key = req["key"]
+        if key.startswith("collred/"):
+            # Tree-reduce partials: consumed chunk-at-a-time by a combiner
+            # on an executor thread — never reassembled, so they land in
+            # the stream pads instead of the inbox.
+            self.p2p_streams.deposit(key, req.get("idx", 0), req["data"])
+            return {"ok": True}
+        done = self.p2p_inbox.deposit(
+            key, req.get("idx", 0), req.get("total", 1), req["data"]
+        )
+        if req.get("relay"):
+            # Mid-tree member of a tree broadcast: forward this chunk to
+            # our own children the moment the contiguous prefix reaches it
+            # (cut-through; the inbox keeps its copy for the local take).
+            self.p2p_relays.feed(
+                self, key, req.get("idx", 0), req.get("total", 1),
+                req["data"], req["relay"],
+            )
+        if done and key.startswith("chdev/"):
+            self.channels.ring_doorbell(key.split("/", 2)[1])
+        return {"ok": True}
+
+    async def rpc_p2p_ack(self, req):
+        """Delivery receipt for a direct-mailbox payload: True once every
+        chunk of ``key`` has landed (including already-taken payloads — the
+        tombstone remembers). The group-broadcast fan-out acalls this after
+        its chunk pushes, turning the one-way frames into a confirmed
+        delivery and a dead member into a NAMED failure."""
+        timeout = min(float(req.get("timeout", 2.0)), 30.0)
+        if self.p2p_inbox.completed(req["key"]):
+            return {"ok": True}
+        loop = asyncio.get_event_loop()
+        ok = await loop.run_in_executor(
+            None, self.p2p_inbox.wait_complete, req["key"], timeout
+        )
+        return {"ok": bool(ok)}
+
+    async def rpc_devobj_broadcast(self, req):
+        """Driver asks this HOLDER to fan a device object out: with a
+        ``group`` (one this process initialized), one group operation
+        delivers to every member's direct mailbox
+        (manager.broadcast_via_group); without one, materialize the host
+        copy into this node's arena so the caller can relay it cluster-wide
+        over the cut-through push tree (the cross-node fallback)."""
+        mgr = self._device_objects
+        oid = req["object_id"]
+        entry = mgr.entry(oid) if mgr is not None else None
+        if entry is None:
+            return {"kind": "missing"}
+        loop = asyncio.get_event_loop()
+        group = req.get("group")
+        if group is not None:
+            from ray_tpu_torch.util.collective import is_group_initialized
+
+            if not is_group_initialized(group):
+                return {
+                    "kind": "error",
+                    "error": f"holder has no collective group {group!r}",
+                }
+            try:
+                result = await loop.run_in_executor(
+                    None, mgr.broadcast_via_group, oid, group,
+                    float(req.get("timeout", 30.0)),
+                )
+            except KeyError:
+                return {"kind": "missing"}
+            return {"kind": "collective", **result}
+        ok = await loop.run_in_executor(None, mgr.materialize_to_store, oid)
+        if ok:
+            return {"kind": "plasma", "location": self.node_id}
+        return {"kind": "missing"}
+
+    async def rpc_devobj_reduce(self, req):
+        """One HOLDER's share of a device-object group reduce/allreduce:
+        feed the resident tensor into the tree combine on an executor
+        thread (chunk waits + elementwise math must not stall the IO
+        loop). The gang is concurrent by construction — the driver
+        dispatches every holder's RPC in parallel and each holder blocks
+        in the collective until its children/parent move."""
+        mgr = self._device_objects
+        oid = req["object_id"]
+        entry = mgr.entry(oid) if mgr is not None else None
+        if entry is None:
+            return {"kind": "missing"}
+        group = req.get("group")
+        from ray_tpu_torch.util.collective import is_group_initialized
+
+        if group is None or not is_group_initialized(group):
+            return {
+                "kind": "error",
+                "error": f"holder has no collective group {group!r}",
+            }
+        loop = asyncio.get_event_loop()
+        try:
+            result = await loop.run_in_executor(
+                None, mgr.reduce_via_group, oid, group,
+                req.get("mode", "allreduce"), req.get("op", "SUM"),
+                int(req.get("dst_rank", 0)), req["tag"],
+                float(req.get("timeout", 60.0)),
+            )
+        except KeyError:
+            return {"kind": "missing"}
+        except Exception as e:
+            # The collective itself failed (timeout naming a silent child,
+            # shape disagreement, ...): the object is intact — answer with
+            # the error instead of severing the connection.
+            return {"kind": "error", "error": repr(e)}
+        return {"kind": "collective", **result}
+
+    async def rpc_devobj_stats(self, req):
+        from ray_tpu_torch.experimental.device_object.manager import device_object_stats
+
+        return device_object_stats()
+
+    # ---- compiled-graph channel plane (experimental/channel/) ----
+
+    async def rpc_channel_doorbell(self, req):
+        """One-way producer wakeup: the reader blocked on this channel
+        re-checks its ring/side-channel now instead of at the next poll."""
+        self.channels.ring_doorbell(req["cid"])
+        return {"ok": True}
+
+    async def rpc_channel_data(self, req):
+        """Side-channel envelope chunk (oversize payloads and the cross-node
+        fallback ride this, chunked like the object push path)."""
+        gate = self.channels.gate_if_live(req["cid"])
+        if gate is None or gate.closed:
+            return {"ok": False, "closed": True}
+        gate.add_chunk(req["seq"], req["idx"], req["total"], req["data"])
+        return {"ok": True}
+
+    async def rpc_channel_query(self, req):
+        """Remote-mode backpressure probe: the producer bounds its in-flight
+        envelopes by the reader's queue depth."""
+        gate = self.channels.gate_if_live(req["cid"])
+        if gate is None:
+            return {"queued": 0, "closed": True}
+        return {"queued": gate.queued(), "closed": gate.closed}
+
+    async def rpc_channel_poison(self, req):
+        """Plant a sticky error envelope (actor death propagation): every
+        subsequent read on this channel returns the typed error."""
+        gate = self.channels.gate_if_live(req["cid"])
+        if gate is not None:
+            gate.poison(req["env"])
+            flight_recorder.record("channel_poison", req["cid"][:12])
+        return {"ok": True}
+
+    async def rpc_channel_close(self, req):
+        """Teardown: blocked readers raise ChannelClosedError promptly."""
+        gate = self.channels.gate_if_live(req["cid"])
+        if gate is not None:
+            gate.close()
+            flight_recorder.record("channel_close", req["cid"][:12])
         return {"ok": True}
 
     async def rpc_get_inline(self, req):
@@ -2117,6 +2524,11 @@ class CoreWorker:
             # Decref outside any recursion concerns via the same thread; the
             # inner call re-takes the lock per entry.
             self._io.loop.call_soon_threadsafe(self._decref_contained, contained)
+        if obj.device is not None:
+            dev, obj.device = obj.device, None
+            # Release the holder's device buffers (and any spilled copy).
+            # Async push / manager-internal lock only — we hold self._lock.
+            self._free_device_object(oid, dev)
         if obj.in_plasma:
             async def _free():
                 try:
@@ -2162,6 +2574,13 @@ class CoreWorker:
         from ray_tpu_torch._private.ids import ObjectID, TaskID
 
         oid = ObjectID.for_return(TaskID.from_hex(spec.task_id), index).hex()
+        if self._tensor_transport and spec.is_actor_task() and (
+            _is_device_tensor(value) or type(value).__name__ == "DTensor"
+        ):
+            # Device object plane: the tensor never leaves this actor's
+            # device; the owner gets a descriptor + holder coordinates (a
+            # DTensor is refused there, naming ROADMAP A9f).
+            return self._package_device(oid, value)
         ser = serialization.serialize(value)
         contained = self._incref_contained(ser.contained_refs)
         if ser.total_size > self.cfg.max_direct_call_object_size:
@@ -2227,6 +2646,10 @@ class CoreWorker:
                 self._actor_instance = instance
                 self._actor_id = spec.actor_id
                 self._actor_creation_spec = spec
+                self._tensor_transport = spec.tensor_transport
+                torch = sys.modules.get("torch")
+                if torch is not None and torch.cuda.is_initialized():
+                    self._cuda_device = torch.cuda.current_device()
                 values = []
             else:
                 out = fn(*args, **kwargs)
@@ -2417,6 +2840,8 @@ class CoreWorker:
         for c in list(self._actor_clients.values()):
             c.close()
         for c in list(self._owner_client_cache.values()):
+            c.close()
+        for c in list(self._devobj_clients.values()):
             c.close()
         self.server.stop()
         self.store.close()

@@ -680,6 +680,17 @@ class Raylet:
                     pass
         return {"ok": True}
 
+    @schema(channel_id=str, size=int)
+    async def rpc_channel_create(self, req):
+        """Allocate a compiled-graph channel ring from this node's arena
+        (experimental/channel/); freed by channel_free at DAG teardown."""
+        offset = await self.store.channel_create(req["channel_id"], req["size"])
+        return {"offset": offset, "arena": self.arena_name}
+
+    @schema(channel_id=str)
+    async def rpc_channel_free(self, req):
+        return {"freed": self.store.channel_free(req["channel_id"])}
+
     @schema(object_id=str)
     async def rpc_delete_local_object(self, req):
         self.store.delete(req["object_id"])

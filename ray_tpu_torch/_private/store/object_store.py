@@ -54,6 +54,10 @@ class StoreCore:
         # RAY_TPU_TORCH_OBJECT_SPILLING_CONFIG.
         self.external_storage = create_external_storage(spill_dir)
         self.objects: dict[str, ObjectEntry] = {}
+        # Compiled-graph channel rings (experimental/channel/): arena blocks
+        # allocated outside the object lifecycle — no seal/evict/spill; held
+        # until the owning CompiledDAG's teardown frees them.
+        self.channels: dict[str, tuple[int, int]] = {}  # channel_id -> (offset, size)
         # Native shm index: clients resolve local sealed objects without RPC.
         self.index = index
         # Arena blocks whose index slot still has client pins: freed once the
@@ -146,6 +150,40 @@ class StoreCore:
             # timeout on an entry that will never seal.
             entry.sealed_event.set()
 
+    # ---- channel rings (compiled graphs; experimental/channel/) ----
+
+    async def channel_create(self, channel_id: str, size: int) -> int:
+        """Allocate a channel ring from the arena (idempotent per id).
+        Channel blocks are never evicted or spilled — they are live SPSC
+        rings, not objects — but allocating one may evict/spill objects."""
+        existing = self.channels.get(channel_id)
+        if existing is not None:
+            return existing[0]
+        self.drain_deferred_frees()
+        offset = self.arena.alloc(size)
+        if offset is None:
+            await self._make_space(size)
+            offset = self.arena.alloc(size)
+            if offset is None:
+                from ray_tpu_torch.exceptions import ObjectStoreFullError
+
+                raise ObjectStoreFullError(
+                    f"cannot allocate {size}-byte channel ring "
+                    f"(used={self.arena.used()}, capacity={self.arena.capacity})"
+                )
+        # Zero the ring header: stale arena bytes must not read as counts.
+        self.arena.write(offset, b"\x00" * min(size, 64))
+        self.channels[channel_id] = (offset, size)
+        return offset
+
+    def channel_free(self, channel_id: str) -> bool:
+        """Release a channel ring back to the arena (idempotent)."""
+        entry = self.channels.pop(channel_id, None)
+        if entry is None:
+            return False
+        self.arena.free(entry[0])
+        return True
+
     # ---- access ----
 
     def contains(self, object_id: str) -> bool:
@@ -226,6 +264,7 @@ class StoreCore:
             "used": self.arena.used(),
             "num_objects": len(self.objects),
             "num_spilled": sum(1 for e in self.objects.values() if e.spilled_path),
+            "num_channels": len(self.channels),
         }
 
     def objects_info(self) -> dict:

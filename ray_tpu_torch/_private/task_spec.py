@@ -47,6 +47,11 @@ class TaskSpec:
     actor_name: str = ""  # named actor registration
     namespace: str = ""
     get_if_exists: bool = False
+    # Device object plane (experimental/device_object/): non-empty on an
+    # actor-creation spec makes every top-level tensor the actor returns
+    # stay device-resident (the actor is the holder; callers get a
+    # descriptor that resolves out of band).
+    tensor_transport: str = ""
     # Scheduling.
     placement_group_id: str = ""
     placement_group_bundle_index: int = -1

@@ -117,6 +117,14 @@ class WorkerExecutor:
         server.register("lease_exec", self.rpc_lease_exec)
         server.register("lease_ping", self.rpc_lease_ping)
         server.register("cancel_exec", self.rpc_cancel_exec)
+        # Channel-loop mode (compiled execution graphs, dag/compiled.py):
+        # install starts a resident loop on a dedicated thread that serves
+        # channel iterations with no per-call task spec / ObjectRef / raylet
+        # RPC; classic calls keep flowing through the main exec queue.
+        server.register("channel_loop_install", self.rpc_channel_loop_install)
+        server.register("channel_loop_stop", self.rpc_channel_loop_stop)
+        server.register("channel_loop_stats", self.rpc_channel_loop_stats)
+        self._channel_loops: dict = {}
         # Leased-task pipeline (reference: direct task transport worker side,
         # core_worker.cc task receiver): owners ship batches of specs; we
         # execute FIFO (the main-thread exec queue) and push completion
@@ -545,6 +553,75 @@ class WorkerExecutor:
         while len(self._actor_results_order) > 512:
             self._actor_results.pop(self._actor_results_order.popleft(), None)
         return payload
+
+    # ---- channel-loop mode (compiled graphs; experimental/channel/) ----
+
+    async def rpc_channel_loop_install(self, req):
+        """Bind this actor into a compiled DAG: build the channel endpoints
+        and start the resident loop on its own dedicated thread. A separate
+        thread (the reference runs accelerated-DAG loops on a background
+        execution thread the same way) keeps the actor AVAILABLE: classic
+        method calls still run on the main exec queue instead of queuing
+        behind the loop forever. Mixing classic calls with compiled stages
+        therefore executes them concurrently — same hazard class as
+        max_concurrency > 1, and the user opted in by mixing the paths."""
+        from ray_tpu_torch.experimental.channel.resident_loop import ChannelLoop
+
+        if self._channel_loops:
+            return {
+                "error": "actor already participates in a compiled graph; "
+                "teardown() the existing CompiledDAG first"
+            }
+        if self.cw._actor_instance is None:
+            return {"error": "channel loops require an actor worker"}
+        try:
+            loop = ChannelLoop(self.cw, req["loop_id"], req["stages"])
+        except Exception as e:  # bad descriptor / unknown method
+            return {"error": f"channel loop install failed: {e!r}"}
+        self._channel_loops[req["loop_id"]] = loop
+        threading.Thread(
+            target=loop.run, name="channel-loop", daemon=True
+        ).start()
+        return {"ok": True}
+
+    async def rpc_channel_loop_stop(self, req):
+        """Teardown: stop the resident loop, wait for its thread to exit,
+        and drop its reader gates. ok=False (loop still running — e.g. a
+        stage method stuck in user code) keeps the loop REGISTERED so a new
+        compile cannot double-bind the actor, and tells the driver not to
+        free arena blocks the loop may still write."""
+        loop = self._channel_loops.pop(req["loop_id"], None)
+        if loop is None:
+            return {"ok": True, "stopped": False}
+        loop.stop()
+        try:
+            await asyncio.wait_for(loop.exited.wait(), 15)
+        except asyncio.TimeoutError:
+            self._channel_loops[req["loop_id"]] = loop
+            return {"ok": False, "error": "channel loop did not exit within 15s"}
+        self.cw.channels.drop(loop.channel_ids)
+        # Eager-pushed payloads nobody will ever take (producer raced the
+        # stop) must not sit in the inbox until the age sweep.
+        for cid in loop.channel_ids:
+            self.cw.p2p_inbox.purge_prefix(f"chdev/{cid}/")
+        return {"ok": True, "stopped": True}
+
+    async def rpc_channel_loop_stats(self, req):
+        """Per-stage stall/busy/resolve split of a resident loop — the
+        driver-side bubble-fraction measurement reads it (parallel/
+        mpmd_pipeline.py)."""
+        loop = self._channel_loops.get(req["loop_id"])
+        if loop is None:
+            return {"found": False, "stages": []}
+        if req.get("reset"):
+            import time as _time
+
+            for s in loop.stages:
+                s.stall_ns = s.busy_ns = s.resolve_ns = s.iters = 0
+                # Stamp the reset so an interval already in flight (a loop
+                # blocked in read()) charges only its post-reset portion.
+                s.reset_ns = _time.perf_counter_ns()
+        return {"found": True, "stages": [s.stats_dict() for s in loop.stages]}
 
     # ---- cancellation (reference: core_worker.cc HandleCancelTask) ----
 

@@ -28,8 +28,8 @@ _ACTOR_OPTION_KEYS = {
     "placement_group",
     "placement_group_bundle_index",
     "runtime_env",
-    # Device object plane (not ported, ROADMAP A10): accepted as an option so
-    # that creating such an actor raises NotImplementedError, not a bad-key error.
+    # Device object plane: tensor returns stay resident on this actor's
+    # device (experimental/device_object/).
     "tensor_transport",
 }
 
@@ -145,8 +145,11 @@ class ActorClass:
         )
 
     def bind(self, *args, **kwargs):
-        """The DAG API is not ported (ROADMAP A5, what remains)."""
-        raise NotImplementedError("the DAG API (.bind) is not ported (ROADMAP A5, what remains)")
+        """Build a lazy actor-construction DAG node (reference: ray.dag
+        class_node); method ``.bind`` on the result builds method nodes."""
+        from ray_tpu_torch.dag.dag_node import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
     def _method_num_returns(self) -> dict:
         out = {}

@@ -88,6 +88,94 @@ class ObjectLostError(RayTpuError):
         self.object_id_hex = object_id_hex
 
 
+class DeviceObjectLostError(ObjectLostError):
+    """A device-resident object (experimental/device_object/) is gone: the
+    holder process that kept the tensor on its device is dead or
+    unreachable AND no spilled/host copy exists. Names the holder so the
+    postmortem starts at the right process."""
+
+    def __init__(self, object_id_hex: str = "", holder: str = "", msg: str = ""):
+        self.holder = holder
+        super().__init__(
+            object_id_hex,
+            msg
+            or (
+                f"device object {object_id_hex[:16]} was lost: holder "
+                f"{holder or '<unknown>'} is dead or unreachable and no "
+                "spilled/host copy exists"
+            ),
+        )
+
+
+class CollectiveError(RayTpuError):
+    """A collective-plane operation (util/collective) failed."""
+
+
+class CollectiveTimeoutError(CollectiveError):
+    """A collective op or p2p recv timed out waiting for peers. Names the
+    group, the ranks still missing, and (for p2p) the transfer tag, so the
+    postmortem starts at the right member. Deliberately NOT a TimeoutError
+    subclass: the chaos-matrix contract treats bare timeouts as untyped
+    failures, and this class exists to carry the blame."""
+
+    def __init__(self, msg: str = "", *, group: str = "", ranks=None, tag: str = ""):
+        self.group = group
+        self.ranks = sorted(ranks) if ranks else []
+        self.tag = tag
+        super().__init__(
+            msg
+            or (
+                f"collective op on group {group or '<unknown>'} timed out "
+                f"waiting for ranks {self.ranks}"
+                + (f" (tag {tag!r})" if tag else "")
+            )
+        )
+
+
+class CollectiveBroadcastError(CollectiveError):
+    """A device-object group broadcast could not deliver to every rank.
+    Surviving ranks HAVE the payload (their resolves stay local); ``failed``
+    maps each undelivered rank to the reason, so callers can name the dead
+    member and decide whether to respawn it. Failed ranks were already
+    EVICTED from the group roster (epoch bump), so the next broadcast
+    addresses survivors only; a respawned replacement re-registers via
+    roster_join and is back on the broadcast plane from its first
+    post-rejoin sync."""
+
+    def __init__(self, msg: str = "", *, group: str = "", failed: dict | None = None, info: dict | None = None):
+        self.group = group
+        self.failed = dict(failed or {})
+        self.info = dict(info or {})
+        super().__init__(
+            msg
+            or (
+                f"group broadcast on {group or '<unknown>'} failed for ranks "
+                f"{sorted(self.failed)}: {self.failed}"
+            )
+        )
+
+
+class CollectiveReduceError(CollectiveError):
+    """A device-object group reduce/allreduce could not complete on every
+    holder. Unlike a failed broadcast (survivors keep their payload), a
+    PARTIAL reduce is poison — some holders may already hold the combined
+    value while others kept their contribution — so ``failed`` names every
+    holder that did not finish and the caller must treat the gang as
+    divergent (re-run or rebuild)."""
+
+    def __init__(self, msg: str = "", *, group: str = "", failed: dict | None = None, info: dict | None = None):
+        self.group = group
+        self.failed = dict(failed or {})
+        self.info = dict(info or {})
+        super().__init__(
+            msg
+            or (
+                f"group reduce on {group or '<unknown>'} failed for holders "
+                f"{sorted(self.failed)}: {self.failed}"
+            )
+        )
+
+
 class OwnerDiedError(ObjectLostError):
     """The object's owner process died; the object's lineage is gone."""
 

@@ -95,10 +95,21 @@ class Mesh:
         return f"Mesh({self.axes}, {self.device_type})"
 
 
-def _default_device_type() -> str:
-    import torch
+_BACKEND_DEVICE = {"nccl": "cuda", "gloo": "cpu"}
 
-    return "cuda" if torch.cuda.is_available() else "cpu"
+
+def _default_device_type() -> str:
+    """The device the default process group's backend moves: ``nccl`` ->
+    "cuda", ``gloo`` -> "cpu". Never chosen from whether a card is present:
+    a gloo world on a box with a card stays on the CPU, and an nccl world
+    never falls back to it."""
+    import torch.distributed as dist
+
+    backend = str(dist.get_backend()).lower()
+    if backend not in _BACKEND_DEVICE:
+        raise ValueError(f"device_type=None needs an nccl or gloo process group, not {backend!r}; "
+                         "pass device_type explicitly")
+    return _BACKEND_DEVICE[backend]
 
 
 def _build(sizes: dict[str, int], device_type: str | None) -> Mesh:
@@ -119,7 +130,8 @@ def _build(sizes: dict[str, int], device_type: str | None) -> Mesh:
 
 def create_mesh(config: MeshConfig | None = None, device_type: str | None = None, **axis_sizes) -> Mesh:
     """A mesh over every rank of the default process group (one device per
-    rank; ``device_type`` "cuda" where a card is, else "cpu")."""
+    rank). ``device_type=None`` takes the device from the group's backend:
+    "cuda" for nccl, "cpu" for gloo; any other backend raises."""
     import torch.distributed as dist
 
     if config is None:

@@ -90,8 +90,11 @@ class RemoteFunction:
         return refs
 
     def bind(self, *args, **kwargs):
-        """The DAG API is not ported (ROADMAP A5, what remains)."""
-        raise NotImplementedError("the DAG API (.bind) is not ported (ROADMAP A5, what remains)")
+        """Build a lazy DAG node instead of executing (reference:
+        python/ray/dag — f.bind(x))."""
+        from ray_tpu_torch.dag.dag_node import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     @property
     def underlying_function(self):

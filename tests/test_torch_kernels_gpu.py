@@ -160,3 +160,58 @@ def test_ring_chunks_match_the_plain_chunk(cuda, dtype):
             _close(lse, want_lse, dtype, f"lse k_start={k_start} causal={causal}")
         else:
             assert not out.any() and R._empty(lse).all()
+
+
+@pytest.mark.gpu
+def test_nccl_group_of_one_allreduces_on_the_card(cuda):
+    """A world-1 NCCL group (ray_tpu_torch.util.collective, backend "nccl"):
+    the allreduce runs through NCCL on the card and its result stays there."""
+    from ray_tpu_torch.util import collective as col
+
+    col.init_collective_group(1, 0, backend="nccl", group_name="gpu-test")
+    try:
+        x = torch.arange(1 << 20, device=cuda, dtype=torch.float32)
+        out = col.allreduce(x, "gpu-test")
+        torch.cuda.synchronize()
+        assert out.device.type == "cuda" and torch.equal(out, x)
+        assert torch.equal(col.allgather(x, "gpu-test")[0], x)
+    finally:
+        col.destroy_collective_group("gpu-test")
+
+
+@pytest.mark.gpu
+def test_cuda_device_object_resolves_in_a_second_actor(cuda):
+    """A CUDA tensor held under tensor_transport= by one actor is resolved
+    by another over a shared group: the same bits, still on the card."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import collective as col
+
+    @rt.remote(tensor_transport="collective", num_gpus=0.25)
+    class Holder:
+        def init_collective(self, world, rank, backend, group):
+            col.init_collective_group(world, rank, backend=backend, group_name=group)
+
+        def make(self):
+            g = torch.Generator(device="cuda").manual_seed(4)
+            return torch.randn(1 << 20, generator=g, device="cuda").to(torch.bfloat16)
+
+    @rt.remote(num_gpus=0.25)
+    class Consumer:
+        def init_collective(self, world, rank, backend, group):
+            col.init_collective_group(world, rank, backend=backend, group_name=group)
+
+        def take(self, refs):
+            v = rt.get(refs[0])
+            g = torch.Generator(device="cuda").manual_seed(4)
+            want = torch.randn(1 << 20, generator=g, device="cuda").to(torch.bfloat16)
+            return str(v.device), torch.equal(v, want)
+
+    rt.init(num_cpus=2, num_gpus=1)
+    try:
+        h, c = Holder.remote(), Consumer.remote()
+        col.create_collective_group([h, c], backend="cpu", group_name="pair")
+        ref = h.make.remote()
+        device, equal = rt.get(c.take.remote([ref]), timeout=120)
+        assert device.startswith("cuda") and equal
+    finally:
+        rt.shutdown()

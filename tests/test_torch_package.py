@@ -25,7 +25,10 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch._private.worker_main, ray_tpu_torch._private.node, ray_tpu_torch.train.torch, "
         "ray_tpu_torch.train.flagship_loop, ray_tpu_torch.air.execution, ray_tpu_torch.parallel.mesh, "
         "ray_tpu_torch.parallel.ring_attention, ray_tpu_torch.parallel.ulysses, ray_tpu_torch.parallel.pipeline, "
-        "ray_tpu_torch.parallel.multichip, ray_tpu_torch.train.torch.checkpointing\n"
+        "ray_tpu_torch.parallel.multichip, ray_tpu_torch.train.torch.checkpointing, "
+        "ray_tpu_torch.util.collective, ray_tpu_torch.util.collective.nccl_group, "
+        "ray_tpu_torch.experimental.device_object, ray_tpu_torch.experimental.channel, "
+        "ray_tpu_torch.dag, ray_tpu_torch.parallel.mpmd_pipeline\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -52,7 +55,13 @@ def test_no_source_imports_jax_or_ray_tpu():
     assert len(files) > 5
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ("parallel/mesh.py", "parallel/ring_attention.py", "parallel/ulysses.py", "parallel/pipeline.py",
-                   "parallel/multichip.py", "train/torch/checkpointing.py", "models/transformer.py", "air/session.py"):
+                   "parallel/multichip.py", "train/torch/checkpointing.py", "models/transformer.py", "air/session.py",
+                   "util/collective/collective.py", "util/collective/cpu_group.py", "util/collective/p2p.py",
+                   "util/collective/nccl_group.py", "util/collective/types.py",
+                   "experimental/device_object/manager.py", "experimental/device_object/resolve.py",
+                   "experimental/device_object/descriptor.py", "experimental/channel/channel.py",
+                   "experimental/channel/device_envelope.py", "experimental/channel/resident_loop.py",
+                   "dag/dag_node.py", "dag/compiled.py", "parallel/mpmd_pipeline.py"):
         assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)

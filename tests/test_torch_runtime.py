@@ -174,15 +174,22 @@ def test_workers_belong_to_the_port(cluster):
 
 
 def test_what_is_not_ported_raises(cluster):
-    with pytest.raises(NotImplementedError, match="A10"):
-        rt.put(torch.ones(2), tensor_transport="collective")
+    """The device-object plane exists (ROADMAP A10): an unknown transport is
+    refused, a DTensor under tensor_transport= names ROADMAP A9f, and the
+    client address still raises (A14)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
 
-    @rt.remote
-    def f():
-        return 1
-
-    with pytest.raises(NotImplementedError):
-        f.bind()
+    with pytest.raises(ValueError, match="tensor_transport"):
+        rt.put(torch.ones(2), tensor_transport="bogus")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        d = distribute_tensor(torch.ones(4), init_device_mesh("cpu", (1,)))
+        with pytest.raises(TypeError, match="A9f"):
+            rt.put(d, tensor_transport="collective")
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(NotImplementedError):
         rt.init("ray_tpu_torch://localhost:1")
 
