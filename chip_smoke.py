@@ -123,26 +123,62 @@ line:
    device object. An "a10: {...}" line (with each section's seconds); the
    kernels line's forward row gets "mpmd_launches".
 
+13. serve app: the serve phase's model and engine (bf16, 8 slots, blocks of
+   16, prefill chunks of 128; weights from seed 0 in every process) behind
+   ray_tpu_torch.serve in one cluster, init(num_cpus=4, num_gpus=1), then
+   serve.start(). (a) A monolithic LLMDeployment at half the card, route
+   /llm: 4 greedy prompts over SSE, one at a time, equal to an in-process
+   LLMEngine on the same card; the first again buffered ("stream": false)
+   equal to its SSE twin; the traffic's first 24 requests from 16
+   closed-loop SSE clients (output tokens/s, TTFT p50/p99 and TPOT on the
+   client's clock, beside the serve phase's in-process numbers; the
+   replica's get_stats()); a client that closes its socket after 3 tokens
+   frees its slot and blocks (the pool idle again); every greedy token
+   teacher-forced through forward under SERVE_LOGIT_BAR. (b) After
+   serve.delete, disaggregated_llm_app: a prefill and a decode replica at
+   half the card each, cluster_prefix on; an engine in this process first
+   publishes the shared 64-token prefix (4 blocks) to the cluster tier.
+   Two of (a)'s prompts again, one at a time (tokens equal to (a)'s; TTFT
+   and the gap between tokens beside (a)'s), then the traffic's first 12
+   requests: each greedy request's tokens equal the monolithic app's, every
+   request's first token too (sampled ones included: it is the prefill
+   replica's), every request handed off (imports = exports, none failed),
+   the prefill replica's prefix-import hits > 0, the object store's used
+   bytes unchanged, each handoff's blocks, bytes and ms (from the
+   llm_kv_handoff flight events), the teacher-forced check; the handoff
+   again in this process (a plain, a prefill-role and a decode-role engine,
+   each sampling row recorded): the imported blocks equal the plain
+   engine's bit for bit, and the token and the logits row where the two
+   runs part are printed (the decode side computes the first token's row
+   through a one-row prefill chunk where the monolithic engine runs the
+   decode step: sampled tokens may part there; ROADMAP C7). After
+   serve.shutdown(): no llmprefix/ row in the GCS KV, no Serve process (the
+   controller, the proxy, the replicas) alive, no resident device object in
+   this process. A "serve app: {...}" line with each part's seconds.
+
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
 Phases run in the order 1-6, 8, 9, 7 (the trainer runs in one cluster), 10,
-11, 12.
+11, 12, 13.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import http.client
 import itertools
 import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -227,6 +263,13 @@ RING = dict(sp=4, rank=2)
 SHARDED = dict(warmup=2, steps=5)  # the sharded step: warm-up steps (DTensor's first dispatches), then timed ones
 SHARDED_LOSS_RTOL = 1e-6
 TRAINER_MESH = dict(warmup=2, rounds=0, chunk=1, lag=1, profile_steps=0, mesh=True)
+# The serve app phase: the serve phase's model and engine behind serve.run and
+# HTTP. `exact` greedy prompts of `exact_new` tokens against an in-process
+# engine; the traffic's first `requests` specs (the serve phase's 48, cut to
+# hold the script's wall time) from `clients` SSE clients, the first
+# `disagg_requests` of them again through the disaggregated pair.
+SERVE_APP = dict(exact=4, exact_new=32, requests=24, disagg_requests=12, clients=16, replica_gpus=0.5,
+                 disconnect_after=3)
 
 
 def _phase(name):
@@ -795,10 +838,9 @@ def _record_ticks(eng, log, step_log):
     eng._decode_tick, eng._decode_fn = timed, timed_step
 
 
-def serve_traffic(torch, A, LLMEngine, cfg, params, card, device="cuda", requests=TRAFFIC["requests"]):
-    """Closed-loop streams over the engine at the flagship config until
-    `requests` finish, then (on the card) profiled decode ticks; returns the
-    numbers it prints."""
+def _traffic_specs(cfg, requests):
+    """The serving traffic's shared system prefix and its first `requests`
+    (prompt, new tokens, sampling) specs, from seed 2."""
     tr = TRAFFIC
     rng = np.random.default_rng(2)
     system = rng.integers(0, cfg.vocab_size, tr["prefix"]).tolist()
@@ -808,6 +850,15 @@ def serve_traffic(torch, A, LLMEngine, cfg, params, card, device="cuda", request
         new = int(np.clip(rng.geometric(1 / tr["mean_new"]), *tr["new"]))
         sampled = i % tr["sampled_every"] == tr["sampled_every"] - 1
         specs.append((system + suffix, new, dict(temperature=0.8, top_k=50, seed=1234) if sampled else {}))
+    return system, specs
+
+
+def serve_traffic(torch, A, LLMEngine, cfg, params, card, device="cuda", requests=TRAFFIC["requests"]):
+    """Closed-loop streams over the engine at the flagship config until
+    `requests` finish, then (on the card) profiled decode ticks; returns the
+    numbers it prints."""
+    tr = TRAFFIC
+    system, specs = _traffic_specs(cfg, requests)
     eng = LLMEngine(params, cfg, num_slots=tr["slots"], block_size=tr["block_size"],
                     max_model_len=cfg.max_seq_len, prefill_chunk=tr["prefill_chunk"])
     ticks, steps = [], []
@@ -1850,6 +1901,386 @@ def a10_phase(torch, device="cuda", cfg=None):
     return launches
 
 
+def _llm_http(host, port, body, stop_after=None, timeout=600):
+    """One /llm request over HTTP/1.1: (tokens, {"t0": the send, "stamps":
+    each token's arrival, "done": whether [DONE] came}), on perf_counter's
+    clock. SSE by default (``stop_after``: the client closes its socket after
+    that many tokens); ``"stream": false`` buffers (no stamps)."""
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        info = {"t0": time.perf_counter(), "stamps": [], "done": False}
+        conn.request("POST", "/llm", body=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"/llm answered {resp.status}: {resp.read()[:300]!r}")
+        if not body.get("stream", True):
+            return json.loads(resp.read())["tokens"], dict(info, done=True)
+        toks, buf = [], b""
+        while True:
+            chunk = resp.read1(65536)
+            if not chunk:
+                return toks, info
+            buf += chunk
+            while b"\n\n" in buf:
+                event, buf = buf.split(b"\n\n", 1)
+                payload = event[len(b"data: "):]
+                if payload == b"[DONE]":
+                    info["done"] = True
+                    return toks, info
+                toks.append(json.loads(payload)["token"])
+                info["stamps"].append(time.perf_counter())
+                if stop_after is not None and len(toks) >= stop_after:
+                    conn.sock.shutdown(socket.SHUT_RDWR)
+                    return toks, info
+    finally:
+        conn.close()
+
+
+def _http_traffic(host, port, specs, clients):
+    """`clients` closed-loop SSE clients over `specs`; per spec
+    `_llm_http`'s pair, and the wall seconds."""
+    order, results, errors = itertools.count(), [None] * len(specs), []
+
+    def client():
+        try:
+            while (i := next(order)) < len(specs):
+                prompt, new, kw = specs[i]
+                results[i] = _llm_http(host, port, dict(tokens=prompt, max_new_tokens=new, **kw))
+        except BaseException as e:  # noqa: BLE001 — reported after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, name=f"client{j}") for j in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or None in results:
+        raise AssertionError(f"HTTP traffic failed: {errors[:3]}")
+    if not all(info["done"] for _, info in results):
+        raise AssertionError("an SSE stream ended without [DONE]")
+    return results, wall
+
+
+def _http_summary(results, wall):
+    """Output tokens/s, TTFT and TPOT on the client's clock; the gap from a
+    request's first token to its second; and the share of second tokens that
+    came after every request's first (for a batch sent at once: after the
+    last prefill)."""
+    stamps = [info["stamps"] for _, info in results]
+    out = sum(len(s) for s in stamps)
+    ttft = [(s[0] - info["t0"]) * 1e3 for s, (_, info) in zip(stamps, results)]
+    tpot = [(s[-1] - s[0]) * 1e3 / (len(s) - 1) for s in stamps if len(s) > 1]
+    seconds = [s[1] for s in stamps if len(s) > 1]
+    last_first = max(s[0] for s in stamps)
+    return {"requests": len(results), "output_tokens": out, "wall_s": wall, "output_tokens_per_s": out / wall,
+            "ttft_ms_p50": _percentile(ttft, 50), "ttft_ms_p99": _percentile(ttft, 99),
+            "tpot_ms_mean": sum(tpot) / len(tpot),
+            "second_token_ms_p50": _percentile([(s[1] - s[0]) * 1e3 for s in stamps if len(s) > 1], 50),
+            "second_after_last_first": sum(t > last_first for t in seconds) / len(seconds)}
+
+
+def _sequential_gaps(infos):
+    """Requests sent one at a time: their median TTFT and median gap between
+    tokens after the first (one busy slot), ms."""
+    gaps = [(b - a) * 1e3 for info in infos for a, b in zip(info["stamps"][1:], info["stamps"][2:])]
+    ttft = [(info["stamps"][0] - info["t0"]) * 1e3 for info in infos]
+    return {"ttft_ms_median": float(np.median(ttft)), "gap_ms_median": float(np.median(gaps))}
+
+
+def _serve_pids(rt):
+    """pid of every live Serve actor (controller, proxy, replicas) of this
+    node, by name."""
+    from ray_tpu_torch._private import worker_context
+
+    actors = worker_context.get_core_worker().gcs.call("list_actors", {}, timeout=10)["actors"]
+    ids = {a["actor_id"]: a.get("name") or "" for a in actors if a.get("state") != "DEAD"}
+    return {ids[w.actor_id]: w.pid for w in rt._global_node.raylet.workers.values()
+            if w.actor_id in ids and ids[w.actor_id].startswith("SERVE_")}
+
+
+def _replica_stats(rt, serve, dep):
+    return rt.get(serve.get_deployment_handle(dep).get_stats.remote(), timeout=60)
+
+
+def _handoff_probe(torch, LLMEngine, cfg, params, engine_config, specs):
+    """The handoff in this process, on `specs`: a plain engine, and a
+    prefill-role engine whose sealed payload a decode-role engine imports,
+    each sampling row recorded. Prints whether the imported prompt blocks
+    equal the plain engine's bit for bit, the first token where the two
+    runs part, and the first sampling row (token index) whose logits differ
+    bitwise, with its largest difference."""
+    out = []
+    for prompt, new, kw in specs:
+        engines = [LLMEngine(params, cfg, **engine_config, role=r) for r in ("both", "prefill", "decode")]
+        rows = {"plain": {}, "handoff": {}}
+        for eng, key in zip(engines, ("plain", "handoff", "handoff")):
+            def recording(req, row, _sample=eng._sample, _rows=rows[key]):
+                _rows[len(req._sched_generated)] = row.copy()
+                return _sample(req, row)
+
+            eng._sample = recording
+        plain, pre, dec = engines
+        try:
+            want = plain.submit(prompt, max_new_tokens=new, **kw).result(timeout=300)
+            req = pre.submit(prompt, max_new_tokens=new, **kw)
+            req.result(timeout=300)
+            desc = dict(req.handoff)
+            tok0 = desc.pop("tok0")
+            got = [tok0] + dec.submit(prompt, max_new_tokens=new, resume_tokens=[tok0], kv_import=desc,
+                                      **kw).result(timeout=300)
+            hashes = [h for h in dec._prefix if h in plain._prefix]
+            equal = all(torch.equal(plain._cache[k][:, plain._prefix[h].bid], dec._cache[k][:, dec._prefix[h].bid])
+                        for h in hashes for k in ("k", "v"))
+        finally:
+            for e in engines:
+                e.shutdown()
+        j = next((k for k, (x, y) in enumerate(zip(want, got)) if x != y), None)
+        common = sorted(set(rows["plain"]) & set(rows["handoff"]))
+        diffs = {k: float(np.abs(rows["plain"][k].astype(np.float64) - rows["handoff"][k]).max()) for k in common
+                 if j is None or k <= j}
+        first_row = next((k for k in sorted(diffs) if diffs[k] > 0), None)
+        out.append({"prompt_tokens": len(prompt), "sampled": bool(kw), "blocks_compared": len(hashes),
+                    "blocks_equal": equal, "first_token_difference": j, "first_row_difference": first_row,
+                    "row_max_abs_diff": diffs.get(first_row, 0.0), "rows_compared": len(diffs)})
+        print(f"  in-process handoff, a {len(prompt)}-token {'sampled' if kw else 'greedy'} request: {len(hashes)} "
+              f"imported prompt blocks {'equal' if equal else 'NOT equal'} to the plain engine's bit for bit; tokens "
+              + ("equal" if j is None else f"first differ at {j}") + "; sampling rows "
+              + ("equal bit for bit" if first_row is None else
+                 f"first differ at token {first_row} (largest difference {diffs[first_row]:.3g})")
+              + f" of {len(diffs)} compared")
+    return out
+
+
+def serve_app_phase(torch, card, serve_res=None, device="cuda", cfg=None):
+    """The serve phase's model behind serve.run and HTTP (module doc, phase
+    13): a monolithic LLMDeployment, then a disaggregated prefill/decode pair
+    on one card; returns the phase's numbers."""
+    _phase("serve app")
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import flight_recorder, worker_context
+    from ray_tpu_torch.experimental import device_object as dobj
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.serve.llm import LLMDeployment, LLMEngine, disaggregated_llm_app
+    from ray_tpu_torch.serve.llm import kv_transfer
+    from ray_tpu_torch.serve.llm.engine import block_hashes
+
+    sa, tr = SERVE_APP, TRAFFIC
+    cfg = cfg or tt.TransformerConfig(**SERVE_CFG, dtype=torch.bfloat16, param_dtype=torch.float32, remat=False)
+    model_config = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for field in ("dtype", "param_dtype"):
+        model_config[field] = str(model_config[field]).removeprefix("torch.")
+    engine_config = dict(num_slots=tr["slots"], block_size=tr["block_size"], prefill_chunk=tr["prefill_chunk"])
+    actor_options = {"num_gpus": sa["replica_gpus"]}
+    system, specs = _traffic_specs(cfg, sa["requests"])
+    rng = np.random.default_rng(3)
+    exact = [system + rng.integers(0, cfg.vocab_size, rng.integers(32, 193)).tolist() for _ in range(sa["exact"])]
+    failures, marks, res = [], {}, {}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1, object_store_memory=1 << 30)
+    try:
+        serve.start()
+        host, port = serve.http_address()
+        marks["init_s"] = time.perf_counter() - t0
+        # ---- (a) monolithic ----
+        t = time.perf_counter()
+        app = serve.deployment(ray_actor_options=actor_options)(LLMDeployment).bind(
+            model_config=model_config, engine_config=engine_config, init_seed=0, device=device)
+        serve.run(app, name="mono", route_prefix="/llm")
+        marks["mono_up_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        params = tt.init_params(cfg, seed=0, device=device)
+        eng = LLMEngine(params, cfg, **engine_config)
+        try:
+            wrong, sse, infos = [], [], []
+            for i, prompt in enumerate(exact):
+                want = eng.submit(prompt, max_new_tokens=sa["exact_new"]).result(timeout=300)
+                got, info = _llm_http(host, port, dict(tokens=prompt, max_new_tokens=sa["exact_new"]))
+                sse.append(got)
+                infos.append(info)
+                if not info["done"] or got != want:
+                    wrong.append(i)
+        finally:
+            eng.shutdown()
+        mono_seq = _sequential_gaps(infos)
+        twin = _llm_http(host, port, dict(tokens=exact[0], max_new_tokens=sa["exact_new"], stream=False))[0]
+        print(f"monolithic app ({sa['replica_gpus']} of the card, one replica): {sa['exact'] - len(wrong)} of "
+              f"{sa['exact']} greedy prompts of {sa['exact_new']} tokens over SSE equal to an in-process LLMEngine "
+              f"on the same weights; the first again, buffered: {'equal' if twin == sse[0] else 'DIFFERENT'}")
+        if wrong:
+            failures.append(f"monolithic HTTP tokens differ from the in-process engine for prompts {wrong}")
+        if twin != sse[0]:
+            failures.append("the buffered request's tokens differ from its SSE twin's")
+        marks["exact_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        results, wall = _http_traffic(host, port, specs, sa["clients"])
+        mono = _http_summary(results, wall)
+        mono["sequential"] = mono_seq
+        stats = _replica_stats(rt, serve, "LLMDeployment")
+        mono["replica_stats"] = stats
+        print(f"monolithic app, HTTP traffic on {card}: {mono['requests']} requests from {sa['clients']} closed-loop "
+              f"SSE clients in {wall:.2f} s: {mono['output_tokens_per_s']:.1f} output tokens/s; TTFT p50 "
+              f"{mono['ttft_ms_p50']:.1f} ms, p99 {mono['ttft_ms_p99']:.1f} ms; TPOT {mono['tpot_ms_mean']:.2f} ms, the "
+              f"second token {mono['second_token_ms_p50']:.1f} ms after the first (p50) "
+              "(client clock)" + ("" if serve_res is None else
+              f"; in process (serve phase, {serve_res['requests']} requests): {serve_res['output_tokens_per_s']:.1f} "
+              f"tokens/s, TTFT p50 {serve_res['ttft_ms_p50']:.1f} / p99 {serve_res['ttft_ms_p99']:.1f} ms, TPOT "
+              f"{serve_res['tpot_ms_mean']:.2f} ms"))
+        print(f"monolithic replica get_stats(): {json.dumps(stats)}")
+        marks["mono_traffic_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        before = _replica_stats(rt, serve, "LLMDeployment")
+        _llm_http(host, port, dict(tokens=specs[0][0], max_new_tokens=tr["new"][1]), stop_after=sa["disconnect_after"])
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            st = _replica_stats(rt, serve, "LLMDeployment")
+            if st["cancelled"] > before["cancelled"] and st["running"] == 0:
+                break
+            time.sleep(0.05)
+        idle = st["free_blocks"] + st["cached_blocks"] == st["num_blocks"]
+        print(f"client disconnect after {sa['disconnect_after']} tokens: cancelled {before['cancelled']} -> "
+              f"{st['cancelled']}, running {st['running']}, free {st['free_blocks']} + cached {st['cached_blocks']} "
+              f"of {st['num_blocks']} blocks ({'idle' if idle else 'NOT idle'}) "
+              f"{(time.monotonic() - deadline + 60) * 1e3:.0f} ms after the close")
+        if st["cancelled"] != before["cancelled"] + 1 or st["running"] or not idle:
+            failures.append(f"a disconnected client's request was not freed: {st}")
+        done = [(types.SimpleNamespace(id=f"http-{i}", prompt=p, temperature=kw.get("temperature", 0.0)), r[0])
+                for i, ((p, _, kw), r) in enumerate(zip(specs, results))]
+        mono["check"] = serve_check(torch, tt, cfg, params, done, device=device)
+        marks["disconnect_and_check_s"] = time.perf_counter() - t
+        serve.delete("LLMDeployment")
+        deadline = time.monotonic() + 120
+        while "LLMDeployment" in serve.status() and time.monotonic() < deadline:
+            time.sleep(0.1)
+        # ---- (b) disaggregated ----
+        t = time.perf_counter()
+        cw = worker_context.get_core_worker()
+        # An engine in this process publishes the shared system prefix to the
+        # cluster prefix tier; the prefill replica's first prompts miss its
+        # own cache and import those blocks from here.
+        pub = LLMEngine(params, cfg, cluster_prefix=True, **engine_config)
+        pub.submit(system + specs[0][0][len(system):len(system) + 8], max_new_tokens=1).result(timeout=300)
+        shared = block_hashes(system, tr["block_size"])[-1]
+        while kv_transfer.lookup_prefix_row(cw, shared) is None and time.perf_counter() - t < 60:
+            time.sleep(0.05)
+        serve.run(disaggregated_llm_app(model_config, engine_config, name="llm", prefill_replicas=1,
+                                        decode_replicas=1, cluster_prefix=True, ray_actor_options=actor_options,
+                                        device=device))
+        marks["disagg_up_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        store = rt._global_node.raylet.store
+        used0, wall0 = store.usage()["used"], time.time()
+        # The exactness prompts again, one at a time: no other prefill or
+        # import overlaps a request's decode.
+        seq = [_llm_http(host, port, dict(tokens=prompt, max_new_tokens=sa["exact_new"])) for prompt in exact[:2]]
+        disagg_seq = _sequential_gaps([info for _, info in seq])
+        print(f"one at a time, {len(seq)} greedy prompts of {sa['exact_new']} tokens: monolithic TTFT "
+              f"{mono_seq['ttft_ms_median']:.1f} ms, a token every {mono_seq['gap_ms_median']:.2f} ms; "
+              f"disaggregated {disagg_seq['ttft_ms_median']:.1f} ms, every {disagg_seq['gap_ms_median']:.2f} ms; "
+              f"tokens equal to the monolithic app's: {[t for t, _ in seq] == sse[:2]}")
+        if [t for t, _ in seq] != sse[:2]:
+            failures.append("the disaggregated app's tokens differ from the monolithic app's one request at a time")
+        n = sa["disagg_requests"]
+        dresults, dwall = _http_traffic(host, port, specs[:n], sa["clients"])
+        used1 = store.usage()["used"]
+        disagg = _http_summary(dresults, dwall)
+        disagg["sequential"] = disagg_seq
+        dstats, pstats = _replica_stats(rt, serve, "llm"), _replica_stats(rt, serve, "llm--prefill")
+        greedy = [i for i in range(n) if not specs[i][2]]
+        differ = [i for i in greedy if dresults[i][0] != results[i][0]]
+        sampled_equal = sum(dresults[i][0] == results[i][0] for i in range(n) if specs[i][2])
+        handoffs = []
+        for proc in flight_recorder.collect_dir(rt._global_node.session_dir):
+            for ev in proc["events"]:
+                if ev["type"] == "llm_kv_handoff" and ev["ts"] >= wall0 - 1.0:
+                    oid, blocks, nbytes, ms = ev["detail"].split(":")[:4]
+                    handoffs.append((int(blocks.removesuffix("blk")), int(nbytes.removesuffix("B")),
+                                     float(ms.removesuffix("ms"))))
+        disagg.update(decode_stats=dstats, prefill_stats=pstats, store_bytes=used1 - used0,
+                      greedy_equal=len(greedy) - len(differ), greedy=len(greedy), sampled_equal=sampled_equal,
+                      handoffs=[{"blocks": b, "bytes": nb, "ms": ms} for b, nb, ms in handoffs])
+        print(f"disaggregated app (a prefill and a decode replica, {sa['replica_gpus']} of the card each, "
+              f"cluster_prefix): {n} requests from {sa['clients']} SSE clients in {dwall:.2f} s: "
+              f"{disagg['output_tokens_per_s']:.1f} output tokens/s; TTFT p50 {disagg['ttft_ms_p50']:.1f} ms, p99 "
+              f"{disagg['ttft_ms_p99']:.1f} ms; TPOT {disagg['tpot_ms_mean']:.2f} ms, the second token "
+              f"{disagg['second_token_ms_p50']:.1f} ms after the first (p50; the first is the prefill's, echoed; "
+              f"{disagg['second_after_last_first']:.0%} of second tokens after every request's first); "
+              "greedy tokens equal to the "
+              f"monolithic app's {len(greedy) - len(differ)} of {len(greedy)}, sampled {sampled_equal} of "
+              f"{n - len(greedy)}; store bytes {used1 - used0:+d}")
+        print(f"handoffs: decode imported {dstats['handoffs']} (failed {dstats['handoff_failed']}), prefill exported "
+              f"{pstats['handoff_exports']}; prefix imports on the prefill replica: hits "
+              f"{pstats['prefix_import_hits']}, misses {pstats['prefix_import_misses']}, errors "
+              f"{pstats['prefix_import_errors']}")
+        for b, nb, ms in sorted(handoffs, key=lambda h: h[1]):
+            print(f"  handoff {b} blocks, {nb} bytes ({nb / 2**20:.2f} MiB) in {ms:.2f} ms "
+                  f"({nb / ms / 1e6:.3f} GB/s)")
+        for i in differ:
+            a, b = results[i][0], dresults[i][0]
+            j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            with torch.no_grad():
+                seq = torch.tensor([specs[i][0] + a[:j]], device=device)
+                row = tt.forward(params, seq, _lossless(cfg))[0][0, -1].float()
+            print(f"  greedy request {i}: first differs at token {j} of {len(a)}: forward's logits there, the "
+                  f"monolithic token {row[a[j]].item():.4f}, the disaggregated {row[b[j]].item():.4f}, the row's "
+                  f"maximum {row.max().item():.4f}")
+        sampled_differ = [i for i in range(n) if specs[i][2] and dresults[i][0] != results[i][0]]
+        for i in sampled_differ:
+            a, b = results[i][0], dresults[i][0]
+            print(f"  sampled request {i}: first differs at token "
+                  f"{next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))} of {len(a)}")
+        disagg["handoff_probe"] = _handoff_probe(torch, LLMEngine, cfg, params, engine_config,
+                                                 [specs[i] for i in (greedy[:1] + differ[:2] + sampled_differ[:2])])
+        first_differ = [i for i in range(n) if dresults[i][0][:1] != results[i][0][:1]]
+        if first_differ:
+            failures.append(f"the first token (the prefill replica's) differs from the monolithic app's for "
+                            f"requests {first_differ}")
+        if not all(x["blocks_equal"] for x in disagg["handoff_probe"]):
+            failures.append("a handoff's imported blocks differ from the plain engine's")
+        if differ:
+            failures.append(f"disaggregated greedy tokens differ from the monolithic app's for requests {differ}")
+        sent = n + len(seq)
+        if dstats["handoffs"] != sent or dstats["handoff_failed"] or pstats["handoff_exports"] != sent:
+            failures.append(f"handoffs {dstats['handoffs']} (failed {dstats['handoff_failed']}), exports "
+                            f"{pstats['handoff_exports']}, of {sent} requests")
+        if len(handoffs) != sent:
+            failures.append(f"{len(handoffs)} llm_kv_handoff events for {sent} requests")
+        if pstats["prefix_import_hits"] < 1:
+            failures.append("the prefill replica imported no prefix from the cluster tier")
+        if used1 != used0:
+            failures.append(f"the object store's used bytes moved by {used1 - used0}")
+        ddone = [(types.SimpleNamespace(id=f"disagg-{i}", prompt=specs[i][0], temperature=0.0), dresults[i][0])
+                 for i in greedy]
+        disagg["check"] = serve_check(torch, tt, cfg, params, ddone, device=device)
+        marks["disagg_traffic_s"] = time.perf_counter() - t
+        # ---- teardown ----
+        t = time.perf_counter()
+        pids = _serve_pids(rt)
+        pub.shutdown()
+        serve.shutdown()
+        rows = cw.gcs.call("kv_keys", {"prefix": kv_transfer.PREFIX_ROW}, timeout=10).get("keys", [])
+        deadline = time.monotonic() + 30
+        while any(_alive(p) for p in pids.values()) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        left = sorted(name for name, p in pids.items() if _alive(p))
+        resident = dobj.device_object_stats()["resident_count"]
+        print(f"after serve.shutdown(): {len(rows)} llmprefix/ rows, {len(left)} of {len(pids)} Serve processes "
+              f"left ({sorted(n.split(':')[0] for n in pids)}), {resident} resident device objects here")
+        if rows or left or resident:
+            failures.append(f"left after shutdown: rows {rows[:3]}, processes {left}, resident {resident}")
+        marks["shutdown_s"] = time.perf_counter() - t
+        del params
+    finally:
+        rt.shutdown()
+    res = {"mono": mono, "disagg": disagg, "sections_s": marks, "phase_s": time.perf_counter() - t0}
+    print("serve app: " + json.dumps(res))
+    if failures:
+        raise AssertionError("serve app: " + "; ".join(failures))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1862,7 +2293,7 @@ def main() -> int:
     errs = kernels_phase(torch)
     counts, in_step, first_loss, step_ms = main_path_phase(torch, smi)
     kernels = timings_phase(torch, smi, counts, errs, info, in_step)
-    serve_phase(torch, smi)
+    serve_res = serve_phase(torch, smi)
     moe_counts, moe_first_loss, _ = moe_train_phase(torch, smi)
     serve_phase(torch, smi, moe=True)
     worker_counts, moe_worker_counts = trainer_phase(torch, smi, first_loss, step_ms, moe_first_loss)
@@ -1876,6 +2307,7 @@ def main() -> int:
         row["parallel_launches"] = parallel_counts[row["name"]]
     kernels.append(ring_row)
     kernels[0]["mpmd_launches"] = a10_phase(torch)
+    serve_app_phase(torch, smi, serve_res)
     print(f"script wall time {time.perf_counter() - t0:.1f} s (from the device phase; imports before it)")
     print(smi)
     print(json.dumps({"kernels": kernels}))

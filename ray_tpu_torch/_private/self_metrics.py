@@ -4,7 +4,8 @@ The reference exports scheduler/store/RPC internals as first-class metrics
 (src/ray/stats/metric_defs.cc) next to user-defined instruments; until this
 module, our ``/metrics`` endpoint carried **only** user metrics. The
 runtime components the port has (lease transport, dispatch path, object
-store, RPC plane, transfer plane, actor lifecycle, GCS) feed the
+store, RPC plane, transfer plane, actor lifecycle, GCS, Serve router and
+LLM engine) feed the
 instruments below through the existing ``util.metrics`` KV-flush -> ``/metrics`` path —
 zero new dependencies, one namespace (``ray_tpu_*``), HELP/TYPE on every
 family.
@@ -18,6 +19,11 @@ plain int counters and fold them in via a flush-time collector
 from __future__ import annotations
 
 import threading
+
+# Serve latency buckets (the JAX package's dispatch-latency bounds): the
+# router's assign->result and the LLM engine's TTFT / TPOT land in the
+# millisecond-to-second decades.
+_LATENCY_BOUNDS = [0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1.0, 5.0]
 
 _lock = threading.Lock()
 _instruments: dict | None = None
@@ -134,6 +140,90 @@ def instruments() -> dict:
                 "Pull sources demoted to the back of the ranking after an "
                 "error mid-transfer.",
             ),
+            # --- Serve router (serve/_private/router.py) ---
+            "serve_requests": m.Counter(
+                "ray_tpu_serve_requests_total",
+                "Requests routed to replicas.",
+                tag_keys=("deployment",),
+            ),
+            "serve_queue_depth": m.Gauge(
+                "ray_tpu_serve_router_queue_depth",
+                "In-flight requests across this router's replicas.",
+                tag_keys=("deployment",),
+            ),
+            "serve_migrations": m.Counter(
+                "ray_tpu_serve_migrations_total",
+                "Streaming requests migrated mid-stream to another replica "
+                "after a replica death (proxy-side teacher-forced resume).",
+                tag_keys=("deployment",),
+            ),
+            "serve_drains": m.Counter(
+                "ray_tpu_serve_drains_total",
+                "Replica drains completed before deliberate retirement "
+                "(downscale / rolling update), by outcome.",
+                tag_keys=("outcome",),
+            ),
+            "serve_latency": m.Histogram(
+                "ray_tpu_serve_replica_latency_s",
+                "Replica request latency observed at the handle (assign -> result).",
+                boundaries=_LATENCY_BOUNDS,
+                tag_keys=("deployment",),
+            ),
+            # --- continuous-batching LLM engine (serve/llm/engine.py) ---
+            "serve_llm_running": m.Gauge(
+                "ray_tpu_serve_llm_running_sequences",
+                "Sequences occupying a decode slot in this process's engine.",
+            ),
+            "serve_llm_waiting": m.Gauge(
+                "ray_tpu_serve_llm_waiting_sequences",
+                "Prompts queued for a decode slot / KV blocks.",
+            ),
+            "serve_llm_kv_util": m.Gauge(
+                "ray_tpu_serve_llm_kv_block_utilization",
+                "Allocated fraction of the paged KV block pool (0..1; "
+                "includes refs-0 prefix-cache blocks held for reuse).",
+            ),
+            "serve_llm_prefix_hits": m.Counter(
+                "ray_tpu_serve_llm_prefix_hits_total",
+                "Prompt blocks served from the prefix cache at admission "
+                "(prefill skipped for those tokens).",
+            ),
+            "serve_llm_prefix_misses": m.Counter(
+                "ray_tpu_serve_llm_prefix_misses_total",
+                "Hashable prompt blocks that had to be prefilled.",
+            ),
+            "serve_llm_preemptions": m.Counter(
+                "ray_tpu_serve_llm_preemptions_total",
+                "Sequences preempted for KV blocks (recompute on readmission).",
+            ),
+            "serve_llm_evictions": m.Counter(
+                "ray_tpu_serve_llm_prefix_evictions_total",
+                "refs-0 prefix-cache blocks evicted under allocation pressure.",
+            ),
+            "serve_llm_handoffs": m.Counter(
+                "ray_tpu_serve_llm_handoffs_total",
+                "Completed prefill→decode KV handoffs (sealed payload "
+                "imported on the decode side; descriptors only in-band, "
+                "payloads on the direct-mailbox p2p plane).",
+            ),
+            "serve_llm_prefix_imports": m.Counter(
+                "ray_tpu_serve_llm_prefix_imports_total",
+                "Cluster-prefix-tier KV import attempts by outcome: hit "
+                "(payload landed), miss (no registry row for any probed "
+                "depth), error (row existed but the payload was gone or "
+                "the fetch failed).",
+                tag_keys=("outcome",),
+            ),
+            "serve_llm_ttft": m.Histogram(
+                "ray_tpu_serve_llm_ttft_s",
+                "Time to first token: submit -> first token emitted.",
+                boundaries=_LATENCY_BOUNDS,
+            ),
+            "serve_llm_tpot": m.Histogram(
+                "ray_tpu_serve_llm_time_per_output_token_s",
+                "Per-request mean inter-token latency (first -> last token).",
+                boundaries=_LATENCY_BOUNDS,
+            ),
             # --- actor lifecycle (gcs.py) ---
             "actor_restarts": m.Counter(
                 "ray_tpu_actor_restarts_total", "Actor restarts driven by the GCS."
@@ -154,6 +244,7 @@ def instruments() -> dict:
         m.register_collector(_collect_wire_stats)
         m.register_collector(_collect_transfer_stats)
         m.register_collector(_collect_lease_stats)
+        m.register_collector(_collect_serve_llm_stats)
         _instruments = inst
     return _instruments
 
@@ -228,3 +319,41 @@ def _collect_lease_stats():
         ("reuses", inst["lease_reuses"], None),
         ("tasks", inst["lease_tasks"], None),
     ])
+
+
+def _collect_serve_llm_stats():
+    import sys
+
+    stats = sys.modules.get("ray_tpu_torch.serve.llm.stats")
+    inst = _instruments
+    if inst is None or stats is None:
+        # No engine module in this process, so no engine ever lived here;
+        # importing it would pull torch into every worker.
+        return
+    ENGINES, LLM = stats.ENGINES, stats.LLM
+    _fold("serve_llm", LLM, [
+        ("prefix_hit_blocks", inst["serve_llm_prefix_hits"], None),
+        ("prefix_miss_blocks", inst["serve_llm_prefix_misses"], None),
+        ("preemptions", inst["serve_llm_preemptions"], None),
+        ("evicted_blocks", inst["serve_llm_evictions"], None),
+        ("handoffs", inst["serve_llm_handoffs"], None),
+        ("prefix_import_hits", inst["serve_llm_prefix_imports"], {"outcome": "hit"}),
+        ("prefix_import_misses", inst["serve_llm_prefix_imports"], {"outcome": "miss"}),
+        ("prefix_import_errors", inst["serve_llm_prefix_imports"], {"outcome": "error"}),
+    ])
+    engines = list(ENGINES)
+    if not engines and not LLM.admitted:
+        return  # no engine has ever lived in this process
+    # Gauges are summed across LIVE engines at flush time (best-effort
+    # plain-int reads, like LLMEngine.stats()): several engines fold into
+    # one series, and once the last scheduler exits the sums — and the
+    # exported gauges — honestly drop to zero instead of going stale.
+    running = waiting = used = total = 0
+    for eng in engines:
+        running += sum(r is not None for r in eng._slots)
+        waiting += len(eng._waiting)
+        used += (eng.num_blocks - 1) - len(eng._free)
+        total += eng.num_blocks - 1
+    inst["serve_llm_running"].set(running)
+    inst["serve_llm_waiting"].set(waiting)
+    inst["serve_llm_kv_util"].set(used / total if total else 0.0)

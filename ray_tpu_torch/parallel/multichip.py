@@ -1,8 +1,8 @@
 """Multi-rank runs: a pool of rank processes and the sharded-step dryrun.
 
 ``RankPool(n)`` spawns n processes that form one ``torch.distributed``
-world (gloo on the CPU; NCCL with one card per rank on CUDA) and run
-functions on every rank. ``dryrun_multichip(n)`` is the counterpart of
+world (NCCL with one card per rank by default; gloo with
+``device="cpu"``) and run functions on every rank. ``dryrun_multichip(n)`` is the counterpart of
 ``__graft_entry__.py``'s ``dryrun_multichip``: the full train step of a tiny
 transformer under real dp/tp/pp and sp/ep shardings, one step per pass.
 """
@@ -53,7 +53,7 @@ class RankPool:
     rank left inside a collective cannot be recovered); the next run starts
     a new one."""
 
-    def __init__(self, n: int, device: str = "cpu"):
+    def __init__(self, n: int, device: str = "cuda"):
         if device == "cuda":
             import torch
 

@@ -36,11 +36,16 @@ thread); ``submit``/``cancel`` only touch the wait queue under ``_lock`` and
 set the wake event (``@any_thread``); consumers block only on per-request
 queues.
 
-Not in the port yet (each needs a copy of runtime pieces the port does not
-have): prefill/decode disaggregation (``role`` other than ``"both"``,
-``kv_import``), the cluster prefix tier (``cluster_prefix=True``), which
-needs the core worker and object store, the flight recorder's events and
-the ``self_metrics`` instruments.
+Disaggregated serving, as in the JAX engine: ``role="prefill"`` runs the
+prefill queue shortest-remaining-first and finishes each request with a
+handoff (its KV blocks sealed on the device as a channel payload, plus the
+first sampled token); ``submit(kv_import=...)`` on another engine pulls that
+payload and scatters it into its own pool at admission, so decode continues
+without recomputing the prompt. ``cluster_prefix=True`` publishes each
+prompt's prefix blocks once, as a sealed copy named by ``llmprefix/`` rows in
+the GCS KV, and imports another engine's on a local prefix miss. Both ride
+``kv_transfer.py`` (the device-object plane and the direct p2p mailbox) and
+need a core worker: a bare engine decodes its own requests.
 """
 
 from __future__ import annotations
@@ -56,9 +61,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import flight_recorder as _flight
 from ray_tpu_torch._private.concurrency import any_thread, blocking
 from ray_tpu_torch.exceptions import ReplicaDrainingError
-from ray_tpu_torch.serve.llm.stats import ENGINES
+from ray_tpu_torch.serve.llm.stats import ENGINES, LLM
 
 # Terminal error of a deliberate engine teardown: requests that die with it
 # raise ReplicaDrainingError (a caller may resubmit elsewhere); every other
@@ -91,6 +97,10 @@ class LLMRequest:
         self.seed = int(seed) & 0xFFFFFFFFFFFFFFFF
         self.cancelled = threading.Event()
         self.error: Optional[str] = None
+        # Prefill-role terminal state: the sealed-KV handoff descriptor a
+        # decode-pool replica continues from; None on engines that decode
+        # their own requests.
+        self.handoff: Optional[dict] = None
         self.t_submit = time.monotonic()
         self.t_first: Optional[float] = None
         self.t_done: Optional[float] = None
@@ -107,6 +117,11 @@ class LLMRequest:
         self._sched_registered_bids: set[int] = set()
         self._sched_hashes: list[bytes] = []
         self._sched_admit_seq = -1
+        # Fetched KV import awaiting admission-time scatter: (payload
+        # [2, L, n_blocks, Bs, KV, Dh] on the engine's device, kv_pos tokens
+        # it covers). Set by the SUBMIT thread (the pull must not stall the
+        # scheduler); consumed and dropped by _admit.
+        self._sched_kv_import: Optional[tuple] = None
 
     @property
     def num_generated(self) -> int:
@@ -119,6 +134,9 @@ class LLMRequest:
             if kind == "token":
                 yield val
             elif kind == "done":
+                return
+            elif kind == "handoff":
+                self.handoff = val
                 return
             else:  # error
                 raise _request_error(val)
@@ -139,6 +157,12 @@ class LLMRequest:
             if kind == "token":
                 out.append(val)
             elif kind == "done":
+                return out
+            elif kind == "handoff":
+                # Prefill-role terminal: the first sampled token travels in
+                # the descriptor (resume_tokens on the decode side), so the
+                # caller reads ``req.handoff``, not the token list.
+                self.handoff = val
                 return out
             else:
                 raise _request_error(val)
@@ -208,24 +232,34 @@ class LLMEngine:
         serial_batch: bool = False,
         role: str = "both",
         cluster_prefix: bool = False,
+        cluster_prefix_max: int = 16,
+        handoff_ttl_s: float = 120.0,
     ):
         from ray_tpu_torch.models.generate import init_paged_cache
 
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role must be both|prefill|decode, got {role!r}")
-        if role != "both":
-            raise NotImplementedError(
-                f"role={role!r}: prefill/decode disaggregation (the KV handoff) rides the p2p and "
-                "device-object planes that kv_transfer imports, which are not ported (ROADMAP A10, A5 5e)"
-            )
-        if cluster_prefix:
-            raise NotImplementedError(
-                "cluster_prefix=True: the cluster prefix tier (kv_transfer) rides the p2p and device-object "
-                "planes, which are not ported (ROADMAP A10, A5 5e)"
-            )
         self.params = params
         self.cfg = cfg
+        # Disaggregation role. "prefill": requests end at prefill completion
+        # with a sealed-KV handoff descriptor instead of entering decode, and
+        # the prefill queue runs shortest-remaining-first. "decode" behaves
+        # like "both" in the engine (it keeps full prefill for teacher-forced
+        # resumption and migration recompute); the tag is for routing and
+        # introspection.
         self.role = role
+        self.cluster_prefix = bool(cluster_prefix)
+        self.cluster_prefix_max = int(cluster_prefix_max)
+        self.handoff_ttl_s = float(handoff_ttl_s)
+        # Published prefix entries (deepest chain hash -> sealed payload +
+        # registry row keys), LRU-ordered; overflow frees the sealed copy and
+        # retracts its rows. _pub_oids is the same-engine import guard.
+        self._published: "OrderedDict[bytes, dict]" = OrderedDict()
+        self._pub_oids: set[str] = set()
+        # Outstanding handoff exports (oid -> reap deadline): the decode side
+        # releases the pin after importing; the TTL reaper frees payloads
+        # whose handoff never completed (proxy died mid-flight).
+        self._exports: dict[str, float] = {}
         self.num_slots = int(num_slots)
         self.block_size = int(block_size)
         self.max_model_len = int(max_model_len or cfg.max_seq_len)
@@ -253,7 +287,8 @@ class LLMEngine:
         self._draining = False  # drain-before-retire: refuse NEW submits only
         self._rid = itertools.count()
         self._admit_seq = itertools.count()
-        # Per-engine counters, read by stats().
+        # Per-engine counters for stats(); the process-global LLM stats object
+        # (the metrics flush) is bumped in parallel.
         self._counts = {
             "admitted": 0,
             "finished": 0,
@@ -262,8 +297,20 @@ class LLMEngine:
             "prefix_hit_blocks": 0,
             "prefix_miss_blocks": 0,
             "evicted_blocks": 0,
+            "handoffs": 0,
+            "handoff_exports": 0,
+            "handoff_failed": 0,
+            "prefix_import_hits": 0,
+            "prefix_import_misses": 0,
+            "prefix_import_errors": 0,
         }
         self._decode_fn, self._prefill_fn = _compiled_fns(cfg)
+        try:
+            from ray_tpu_torch._private import self_metrics
+
+            self._metrics = self_metrics.instruments()
+        except Exception:
+            self._metrics = None
         self._thread = threading.Thread(target=self._loop, name="llm-engine", daemon=True)
         # Live-engine registry: _loop's exit (stop OR crash) withdraws it.
         ENGINES.add(self)
@@ -289,13 +336,12 @@ class LLMEngine:
         preemption and never re-emitted: the stream continues from position
         len(resume_tokens), bit-identically under the counter-based RNG.
 
-        ``kv_import`` (a prefill replica's sealed-KV handoff) is not ported
-        and raises NotImplementedError."""
-        if kv_import is not None:
-            raise NotImplementedError(
-                "kv_import: the prefill->decode KV handoff (kv_transfer) rides the p2p and device-object "
-                "planes, which are not ported (ROADMAP A10, A5 5e)"
-            )
+        ``kv_import``: a sealed-KV handoff descriptor from a prefill-pool
+        replica. The payload is pulled HERE on the caller thread (the pull
+        must not stall the scheduler) and scattered into freshly allocated
+        blocks at admission, so prefill resumes at the imported position
+        instead of recomputing the prompt. Any import failure degrades to a
+        plain recompute: the request still completes."""
         tokens = [int(t) for t in tokens]
         if not tokens:
             raise ValueError("empty prompt")
@@ -329,6 +375,10 @@ class LLMEngine:
             req.t_done = time.monotonic()
             req._q.put(("done", "complete"))
             return req
+        if kv_import is not None:
+            self._attach_handoff_import(req, kv_import)
+        elif self.cluster_prefix and not resume and req._sched_hashes:
+            self._attach_cluster_prefix(req)
         with self._lock:
             # A stopped scheduler can never serve this request: fail the
             # submit. The crash handler and the shutdown drain set _crashed
@@ -368,6 +418,8 @@ class LLMEngine:
             "waiting": len(self._waiting),
             "draining": self._draining,
             "role": self.role,
+            "published_prefixes": len(self._published),
+            "pending_exports": len(self._exports),
             **self._counts,
         }
 
@@ -383,6 +435,268 @@ class LLMEngine:
         return True
 
     # ------------------------------------------------------------------
+    # disaggregation: KV handoff import + cluster prefix tier
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _own_addr() -> str:
+        from ray_tpu_torch._private import worker_context
+
+        cw = worker_context.get_core_worker_if_initialized()
+        return ":".join(str(x) for x in cw.address) if cw is not None else "local"
+
+    @blocking
+    def _attach_handoff_import(self, req: LLMRequest, desc: dict):
+        """Pull a prefill-pool replica's sealed KV payload on the SUBMIT
+        thread and stage it for admission-time scatter. Failure is not
+        fatal: the request recomputes its prompt like any fresh submit."""
+        from ray_tpu_torch.serve.llm import kv_transfer
+
+        t0 = time.perf_counter()
+        try:
+            payload = kv_transfer.fetch_kv_payload(desc, release=True, device=self.device)
+        except Exception as e:
+            self._counts["handoff_failed"] += 1
+            _flight.record("llm_kv_handoff", f"{str(desc.get('oid', '?'))[:12]}:failed:{type(e).__name__}")
+            return
+        ms = (time.perf_counter() - t0) * 1e3
+        req._sched_kv_import = (payload, int(desc["kv_pos"]))
+        LLM.handoffs += 1
+        self._counts["handoffs"] += 1
+        src = ":".join(str(x) for x in desc.get("addr", ()))
+        # The pull's ms (on the card: the holder's device-to-host copy, the
+        # mailbox bytes, the importer's host-to-device copy) ahead of the
+        # addresses, which the ring's 84-byte detail may cut.
+        _flight.record(
+            "llm_kv_handoff",
+            f"{desc['oid'][:12]}:{desc.get('blocks', 0)}blk:{desc.get('nbytes', 0)}B:{ms:.2f}ms:"
+            f"{src}->{self._own_addr()}",
+        )
+
+    @blocking
+    def _attach_cluster_prefix(self, req: LLMRequest):
+        """Bounded longest-to-shortest cluster-registry probe for this
+        prompt's chain hashes. A hit stages the holder's sealed KV for
+        admission-time scatter (the handoff import path); any failure falls
+        back to recompute. At most 4 registry lookups and ONE payload fetch
+        per submit; the local prefix cache stays the fast path and
+        short-circuits the probe."""
+        from ray_tpu_torch._private import worker_context
+        from ray_tpu_torch.exceptions import DeviceObjectLostError
+        from ray_tpu_torch.serve.llm import kv_transfer
+
+        cw = worker_context.get_core_worker_if_initialized()
+        if cw is None:
+            return
+        n = len(req._sched_hashes)
+        depths = sorted({n, n - 1, n // 2, n // 4} & set(range(1, n + 1)), reverse=True)[:4]
+        probed = False
+        for d in depths:
+            h = req._sched_hashes[d - 1]
+            if h in self._prefix:
+                # The local cache already covers depth d: admission takes the
+                # refcounted hit; an import can only do worse. (A benign
+                # cross-thread dict read: a stale view costs a probe.)
+                break
+            row = kv_transfer.lookup_prefix_row(cw, h)
+            probed = True
+            if row is None:
+                continue
+            if row.get("oid") in self._pub_oids:
+                continue  # our own publication: importing it is recompute with extra steps
+            use = min(int(row.get("use_blocks", 0)), d)
+            if use < 1 or int(row.get("block_size", 0)) != self.block_size:
+                continue
+            desc = {
+                "oid": row["oid"],
+                "addr": row["addr"],
+                "nbytes": int(row.get("nbytes", 0)),
+                "kv_pos": use * self.block_size,
+                "blocks": use,
+                "block_size": self.block_size,
+            }
+            t0 = time.perf_counter()
+            try:
+                payload = kv_transfer.fetch_kv_payload(desc, release=False, device=self.device)
+            except Exception as e:
+                LLM.prefix_import_errors += 1
+                self._counts["prefix_import_errors"] += 1
+                if isinstance(e, DeviceObjectLostError):
+                    # The payload died under the row (holder eviction or
+                    # death): retract so the next prober skips the corpse.
+                    kv_transfer.retract_prefix_rows(cw, [kv_transfer.PREFIX_ROW + h.hex()], desc["oid"])
+                _flight.record("llm_prefix_import", f"{desc['oid'][:12]}:error:{type(e).__name__}")
+                return
+            req._sched_kv_import = (payload[:, :, :use], use * self.block_size)
+            LLM.prefix_import_hits += 1
+            self._counts["prefix_import_hits"] += 1
+            ms = (time.perf_counter() - t0) * 1e3
+            src = ":".join(str(x) for x in desc["addr"])
+            _flight.record(
+                "llm_prefix_import",
+                f"{desc['oid'][:12]}:{use}blk:{desc['nbytes']}B:{ms:.2f}ms:{src}->{self._own_addr()}",
+            )
+            return
+        if probed:
+            LLM.prefix_import_misses += 1
+            self._counts["prefix_import_misses"] += 1
+
+    def _scatter_import(self, req: LLMRequest, cached: int):
+        """Admission-time KV import (scheduler thread): write the payload
+        blocks the local cache did not already cover into this request's
+        freshly allocated blocks, advance prefill past the imported extent,
+        and register the now-valid full prompt blocks in the LOCAL prefix
+        cache (the import seeds this replica for future local hits)."""
+        payload, kv_pos = req._sched_kv_import
+        req._sched_kv_import = None
+        # Always leave >= 1 prompt token for prefill: admission needs logits
+        # to sample from (the n_hashable rule).
+        kv_pos = min(int(kv_pos), req._sched_target - 1)
+        if kv_pos <= req._sched_pos:
+            return
+        imp_blocks = -(-kv_pos // self.block_size)
+        if imp_blocks > len(req._sched_table) or imp_blocks > payload.shape[2]:
+            return  # malformed descriptor: recompute instead of corrupting
+        idx = self._device_ints(np.asarray(req._sched_table[cached:imp_blocks], np.int64))
+        chunk = payload[:, :, cached:imp_blocks].to(self.device)
+        for i, name in enumerate(("k", "v")):
+            self._cache[name].index_copy_(1, idx, chunk[i].to(self._cache[name].dtype))
+        req._sched_pos = kv_pos
+        self._register_prefix_blocks(req)
+
+    def _try_handoff(self, req: LLMRequest, logits_row: np.ndarray) -> bool:
+        """Prefill-role completion: sample the first output token, seal the
+        prompt's KV blocks as a transient device object, and finish the
+        request with the ~300 B handoff descriptor. Returns False when
+        sealing is impossible (bare engine, seal error): the caller then
+        decodes locally, bit-identically (the counter-based RNG draws the
+        same token at position 0 either way)."""
+        from ray_tpu_torch.serve.llm import kv_transfer
+
+        n_exp = -(-len(req.prompt) // self.block_size)
+        try:
+            desc = kv_transfer.seal_kv_payload(
+                self._cache, req._sched_table[:n_exp], kv_pos=len(req.prompt), block_size=self.block_size,
+                scope="llmkv",
+            )
+        except Exception:
+            desc = None
+        if desc is None:
+            return False
+        tok = self._sample(req, logits_row)
+        req._sched_generated.append(tok)
+        self._exports[desc["oid"]] = time.monotonic() + self.handoff_ttl_s
+        LLM.handoff_exports += 1
+        self._counts["handoff_exports"] += 1
+        self._finish(req, handoff=dict(desc, tok0=tok))
+        return True
+
+    def _publish_prefix(self, req: LLMRequest):
+        """Seal this request's hashable prompt prefix ONCE (an independent
+        copy: pool eviction can never tear an in-flight import) and
+        advertise one registry row per covered depth. LRU-capped at
+        cluster_prefix_max sealed prefixes; overflow frees the payload and
+        retracts its rows (read-check-delete, so a newer holder's
+        last-write-wins row survives)."""
+        hashes = req._sched_hashes
+        if not hashes:
+            return
+        deep = hashes[-1]
+        with self._lock:
+            if deep in self._published:
+                self._published.move_to_end(deep)
+                return
+        from ray_tpu_torch._private import worker_context
+        from ray_tpu_torch.serve.llm import kv_transfer
+
+        cw = worker_context.get_core_worker_if_initialized()
+        if cw is None:
+            return
+        try:
+            desc = kv_transfer.seal_kv_payload(
+                self._cache, req._sched_table[: len(hashes)], kv_pos=len(hashes) * self.block_size,
+                block_size=self.block_size, scope="llmprefix",
+            )
+        except Exception:
+            desc = None
+        if desc is None:
+            return
+        holder_id, _ = cw._holder_identity()
+        keys = kv_transfer.publish_prefix_rows(cw, hashes, desc, holder_id)
+        evicted: list[dict] = []
+        with self._lock:
+            self._published[deep] = {"oid": desc["oid"], "keys": keys}
+            self._pub_oids.add(desc["oid"])
+            while len(self._published) > self.cluster_prefix_max:
+                _, entry = self._published.popitem(last=False)
+                self._pub_oids.discard(entry["oid"])
+                evicted.append(entry)
+        for entry in evicted:
+            self._retract_published(cw, entry)
+
+    def _retract_published(self, cw, entry: dict) -> list:
+        from ray_tpu_torch.serve.llm import kv_transfer
+
+        futures = kv_transfer.retract_prefix_rows(cw, entry["keys"], entry["oid"])
+        try:
+            cw._device_manager().free(entry["oid"])
+        except Exception:
+            pass
+        return futures
+
+    def _reap_exports(self):
+        """Free handoff payloads whose descriptor never came back (the proxy
+        died between prefill and decode-assign): the importing side's pin
+        release is the fast path, this TTL the backstop."""
+        if not self._exports:
+            return
+        now = time.monotonic()
+        stale = [oid for oid, dl in self._exports.items() if dl < now]
+        if not stale:
+            return
+        from ray_tpu_torch._private import worker_context
+
+        cw = worker_context.get_core_worker_if_initialized()
+        for oid in stale:
+            self._exports.pop(oid, None)
+            if cw is not None:
+                try:
+                    cw._device_manager().free(oid)
+                except Exception:
+                    pass
+
+    def _teardown_cluster_tier(self):
+        """Engine exit (shutdown or crash): retract every registry row this
+        engine published and free the sealed payloads and stale exports, so
+        the GCS KV returns to baseline and no importer chases a corpse."""
+        from ray_tpu_torch._private import worker_context
+
+        cw = worker_context.get_core_worker_if_initialized()
+        with self._lock:
+            pubs = list(self._published.values())
+            self._published.clear()
+            self._pub_oids.clear()
+        futures = []
+        for entry in pubs:
+            if cw is not None:
+                futures += self._retract_published(cw, entry)
+        # The deletes run on the IO loop; a replica's process is killed soon
+        # after its engine shuts down, so let them land first (bounded).
+        deadline = time.monotonic() + 5.0
+        for fut in futures:
+            try:
+                fut.result(timeout=max(0.0, deadline - time.monotonic()))
+            except Exception:
+                pass
+        for oid in list(self._exports):
+            self._exports.pop(oid, None)
+            if cw is not None:
+                try:
+                    cw._device_manager().free(oid)
+                except Exception:
+                    pass
+
+    # ------------------------------------------------------------------
     # scheduler (one dedicated thread owns everything below)
     # ------------------------------------------------------------------
 
@@ -392,6 +706,7 @@ class LLMEngine:
             with torch.no_grad():  # grad mode is per thread: the caller's does not reach here
                 while not self._stop.is_set():
                     self._sweep_cancelled()
+                    self._reap_exports()
                     self._admit()
                     busy = self._prefill_tick()
                     busy = self._decode_tick() or busy
@@ -421,6 +736,7 @@ class LLMEngine:
             for req in pending:
                 if req is not None:
                     self._finish(req, error=SHUTDOWN_ERROR)
+            self._teardown_cluster_tier()
 
     def _sweep_cancelled(self):
         for req in self._slots:
@@ -445,7 +761,9 @@ class LLMEngine:
                 continue  # stale LRU entry
             del self._prefix[victim_hash]
             self._bid_hash.pop(victim.bid, None)
+            LLM.evicted_blocks += 1
             self._counts["evicted_blocks"] += 1
+            _flight.record("llm_evict", f"bid={victim.bid}")
             return victim.bid
         return None
 
@@ -516,16 +834,24 @@ class LLMEngine:
                 if bid is None:  # the availability check above rules this out
                     raise RuntimeError("KV block pool ran dry during admission")
                 table.append(bid)
+            LLM.prefix_hit_blocks += cached
             self._counts["prefix_hit_blocks"] += cached
+            LLM.prefix_miss_blocks += len(req._sched_hashes) - cached
             self._counts["prefix_miss_blocks"] += len(req._sched_hashes) - cached
+            if cached:
+                _flight.record("llm_prefix_hit", f"{req.id}:{cached}blk")
             req._sched_table = table
             req._sched_pos = cached * self.block_size
             req._sched_target = target
+            if req._sched_kv_import is not None:
+                self._scatter_import(req, cached)
             req._sched_state = "prefill"
             req._sched_slot = slot
             req._sched_admit_seq = next(self._admit_seq)
             self._slots[slot] = req
+            LLM.admitted += 1
             self._counts["admitted"] += 1
+            _flight.record("llm_admit", f"{req.id}:T{len(req.prompt)}:hit{cached}:slot{slot}")
 
     def _device_ints(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
@@ -533,9 +859,17 @@ class LLMEngine:
     # --- prefill (one fixed-shape chunk per tick, interleaved with decode) ---
 
     def _prefill_tick(self) -> bool:
+        if self.role == "prefill":
+            # Prefill-only pool: shortest-remaining-first. There is no decode
+            # fairness to protect here, so a short prompt jumps the queue
+            # instead of waiting out a long one's chunks; admit_seq breaks
+            # ties. Starvation is bounded: every job leaves at completion.
+            key = lambda r: (r._sched_target - r._sched_pos, r._sched_admit_seq)  # noqa: E731
+        else:
+            key = lambda r: r._sched_admit_seq  # noqa: E731
         req = min(
             (r for r in self._slots if r is not None and r._sched_state == "prefill"),
-            key=lambda r: r._sched_admit_seq,
+            key=key,
             default=None,
         )
         if req is None:
@@ -563,7 +897,14 @@ class LLMEngine:
         req._sched_pos = min(pos0 + q, req._sched_target)
         self._register_prefix_blocks(req)
         if req._sched_pos >= req._sched_target:
-            self._emit_token(req, logits.cpu().numpy()[0])
+            # Publish BEFORE any terminal transition: sealing gathers from
+            # the request's still-allocated block table.
+            if self.cluster_prefix:
+                self._publish_prefix(req)
+            row_logits = logits.cpu().numpy()[0]
+            if self.role == "prefill" and self._try_handoff(req, row_logits):
+                return True
+            self._emit_token(req, row_logits)
         return True
 
     def _register_prefix_blocks(self, req: LLMRequest):
@@ -661,8 +1002,14 @@ class LLMEngine:
         tok = self._sample(req, logits_row)
         req._sched_generated.append(tok)
         req._sched_state = "decode"
+        now = time.monotonic()
         if req.t_first is None:
-            req.t_first = time.monotonic()
+            req.t_first = now
+            if self._metrics is not None:
+                try:
+                    self._metrics["serve_llm_ttft"].observe(now - req.t_submit)
+                except Exception:
+                    pass
         req._q.put(("token", tok))
         if len(req._sched_generated) >= req.max_new_tokens:
             self._finish(req)
@@ -670,7 +1017,9 @@ class LLMEngine:
     # --- terminal transitions ---
 
     def _preempt(self, victim: LLMRequest):
+        LLM.preemptions += 1
         self._counts["preemptions"] += 1
+        _flight.record("llm_preempt", f"{victim.id}:n{len(victim._sched_generated)}")
         self._release_blocks(victim)
         if victim._sched_slot is not None:
             self._slots[victim._sched_slot] = None
@@ -680,7 +1029,7 @@ class LLMEngine:
         with self._lock:
             self._waiting.appendleft(victim)  # resume first: FIFO-ish fairness
 
-    def _finish(self, req: LLMRequest, error: str | None = None, cancelled=False):
+    def _finish(self, req: LLMRequest, error: str | None = None, cancelled=False, handoff: dict | None = None):
         if req._finished:
             return
         req._finished = True
@@ -690,13 +1039,27 @@ class LLMEngine:
         req._sched_slot = None
         req._sched_state = "done"
         req.t_done = time.monotonic()
-        if cancelled:
+        if handoff is not None:
+            LLM.finished += 1
+            self._counts["finished"] += 1
+            req._q.put(("handoff", handoff))
+        elif cancelled:
+            LLM.cancelled += 1
             self._counts["cancelled"] += 1
             req._q.put(("done", "cancelled"))
         elif error is not None:
+            LLM.finished += 1
             self._counts["finished"] += 1
             req.error = error
             req._q.put(("error", error))
         else:
+            LLM.finished += 1
             self._counts["finished"] += 1
             req._q.put(("done", "complete"))
+            if self._metrics is not None and req.t_first is not None:
+                n = len(req._sched_generated)
+                if n > 1:
+                    try:
+                        self._metrics["serve_llm_tpot"].observe((req.t_done - req.t_first) / (n - 1))
+                    except Exception:
+                        pass

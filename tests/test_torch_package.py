@@ -28,7 +28,8 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.parallel.multichip, ray_tpu_torch.train.torch.checkpointing, "
         "ray_tpu_torch.util.collective, ray_tpu_torch.util.collective.nccl_group, "
         "ray_tpu_torch.experimental.device_object, ray_tpu_torch.experimental.channel, "
-        "ray_tpu_torch.dag, ray_tpu_torch.parallel.mpmd_pipeline\n"
+        "ray_tpu_torch.dag, ray_tpu_torch.parallel.mpmd_pipeline, ray_tpu_torch.serve._private.controller, "
+        "ray_tpu_torch.serve._private.http_proxy, ray_tpu_torch.serve.llm.kv_transfer\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -61,11 +62,38 @@ def test_no_source_imports_jax_or_ray_tpu():
                    "experimental/device_object/manager.py", "experimental/device_object/resolve.py",
                    "experimental/device_object/descriptor.py", "experimental/channel/channel.py",
                    "experimental/channel/device_envelope.py", "experimental/channel/resident_loop.py",
-                   "dag/dag_node.py", "dag/compiled.py", "parallel/mpmd_pipeline.py"):
+                   "dag/dag_node.py", "dag/compiled.py", "parallel/mpmd_pipeline.py", "serve/api.py",
+                   "serve/_private/controller.py", "serve/_private/asgi.py", "serve/llm/kv_transfer.py",
+                   "serve/llm/deployment.py"):
         assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_serve_imports_no_http_or_schema_package():
+    """The serve plane stands on the standard library: its HTTP server is
+    asyncio's (no aiohttp) and it has no pydantic schema (the ``serve
+    deploy`` CLI is not ported)."""
+    files = sorted((ROOT / "ray_tpu_torch" / "serve").rglob("*.py"))
+    names = {p.relative_to(ROOT / "ray_tpu_torch" / "serve").as_posix() for p in files}
+    for module in ("api.py", "batching.py", "multiplex.py", "handle.py", "_private/common.py", "_private/router.py",
+                   "_private/replica.py", "_private/controller.py", "_private/asgi.py", "_private/http_proxy.py",
+                   "llm/engine.py", "llm/stats.py", "llm/kv_transfer.py", "llm/deployment.py"):
+        assert module in names, module
+    for path in files:
+        bad = _imported_roots(path) & {"aiohttp", "pydantic", "uvicorn", "starlette", "fastapi"}
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.llm, ray_tpu_torch.serve._private.controller, "
+        "ray_tpu_torch.serve._private.http_proxy, ray_tpu_torch.serve._private.asgi\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('aiohttp', 'pydantic')))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_worker_runtime_imports_no_torch():

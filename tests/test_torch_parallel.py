@@ -36,7 +36,7 @@ N = 4  # ranks in the pool, and JAX devices on the reference's meshes
 
 @pytest.fixture(scope="module")
 def pool():
-    with RankPool(N) as p:
+    with RankPool(N, device="cpu") as p:
         yield p
 
 

@@ -278,21 +278,37 @@ def test_block_hashes_and_route_hint_match_jax():
     assert prefix_route_hint([1, 2, 3], 4) == ""
 
 
-def test_unported_options_raise(model):
-    _, _, params_t, cfg_t = model
-    for role in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="disaggregation"):
-            LLMEngine(params_t, cfg_t, role=role)
-    with pytest.raises(ValueError, match="role"):
-        LLMEngine(params_t, cfg_t, role="other")
-    with pytest.raises(NotImplementedError, match="cluster prefix"):
-        LLMEngine(params_t, cfg_t, cluster_prefix=True)
-    eng = LLMEngine(params_t, cfg_t, **GEOMETRY)
-    try:
-        with pytest.raises(NotImplementedError, match="handoff"):
-            eng.submit([1, 2, 3], kv_import={"oid": "x"})
-    finally:
-        eng.shutdown()
+def test_role_and_cluster_prefix_options(model):
+    """The disaggregation options as the JAX engine has them: an unknown role
+    is refused; a bare ``role="prefill"`` engine (no core worker, so nothing
+    to seal a handoff with) decodes its own requests, and a bare
+    ``cluster_prefix=True`` engine has no registry to publish to or probe;
+    both give the JAX engine's tokens under the same options, with no handoff
+    and no import counted; ``stats()`` has the JAX engine's keys."""
+    params_j, cfg_j, params_t, cfg_t = model
+    for engine_cls, params, cfg in ((LLMEngine, params_t, cfg_t), (JaxEngine, params_j, cfg_j)):
+        with pytest.raises(ValueError, match="role"):
+            engine_cls(params, cfg, role="other")
+    prompts = [(_prompt(40 + i, 5 + 3 * i), {} if i % 2 else dict(temperature=0.8, top_k=8, seed=i)) for i in range(3)]
+    for opts in (dict(role="prefill"), dict(role="decode"), dict(cluster_prefix=True)):
+        outs, handoffs, stats = [], [], []
+        for engine_cls, params, cfg in ((LLMEngine, params_t, cfg_t), (JaxEngine, params_j, cfg_j)):
+            eng = engine_cls(params, cfg, **GEOMETRY, **opts)
+            try:
+                reqs = [eng.submit(p, max_new_tokens=6, **kw) for p, kw in prompts]
+                outs.append([r.result(timeout=60) for r in reqs])
+                handoffs.append([r.handoff for r in reqs])
+                stats.append(eng.stats())
+            finally:
+                eng.shutdown()
+        assert outs[0] == outs[1], opts
+        assert handoffs == [[None] * 3, [None] * 3], opts
+        assert set(stats[0]) == set(stats[1]), set(stats[0]) ^ set(stats[1])
+        for key in ("role", "handoffs", "handoff_exports", "handoff_failed", "prefix_import_hits",
+                    "prefix_import_misses", "prefix_import_errors", "published_prefixes", "pending_exports",
+                    "finished"):
+            assert stats[0][key] == stats[1][key], (opts, key, stats)
+        assert stats[0]["finished"] == 3 and stats[0]["handoff_exports"] == 0
 
 
 def test_engine_cache_builds_no_autograd_graph(model):

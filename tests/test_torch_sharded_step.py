@@ -35,7 +35,7 @@ N = 4
 
 @pytest.fixture(scope="module")
 def pool():
-    with RankPool(N) as p:
+    with RankPool(N, device="cpu") as p:
         yield p
 
 
