@@ -156,16 +156,41 @@ line:
    controller, the proxy, the replicas) alive, no resident device object in
    this process. A "serve app: {...}" line with each part's seconds.
 
+14. data: ray_tpu_torch.data on the card, in one cluster,
+   init(num_cpus=4, num_gpus=1). (a) Ingest: 192 seeded token sequences of
+   1,025 tokens (seed 1) from_numpy in 8 blocks, map_batches splitting
+   inputs and targets, random_shuffle(seed=0), passed as
+   TorchTrainer(datasets={"train": ...}) to a GPU worker running
+   flagship_loop.dataset_loop at the main path's config (weights from seed
+   0): one epoch of iter_torch_batches(batch_size=12, drop_last=True), 16
+   steps. Fails unless every batch arrived on the worker's card, each
+   kernel ran 8 times a step in the worker's counters, the first loss is the
+   driver's in-process step on take_batch(12) of the same dataset within
+   TRAINER_LOSS_RTOL, 192 distinct rows were consumed, and no worker
+   outlives shutdown(). Prints the step's median ms (CUDA events), tokens/s
+   and the ms per step spent in next() on the iterator, beside the trainer
+   phase's raw step. (b) Batch inference: ViT-B/16 (224^2, bf16 on f32
+   weights from seed 0) in a Checkpoint; 256 seeded uint8 images in 4
+   blocks, normalised by map_batches, scored by BatchPredictor(TorchPredictor)
+   in batches of 64 by one actor holding the card. Fails unless the logits
+   equal the in-process ViT's on the same images within VIT_LOGIT_RTOL, the
+   forward kernel ran 12 times a batch in the actor (48), and the object
+   store's used bytes are back where they started once the predictions are
+   released. Prints images/s end to end and in the actor, beside the zoo
+   phase's. A "data: {...}" line with each part's seconds; the kernels
+   line's rows get "data_launches".
+
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
 Phases run in the order 1-6, 8, 9, 7 (the trainer runs in one cluster), 10,
-11, 12, 13.
+11, 12, 13, 14.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import http.client
 import itertools
 import json
@@ -270,6 +295,11 @@ TRAINER_MESH = dict(warmup=2, rounds=0, chunk=1, lag=1, profile_steps=0, mesh=Tr
 # `disagg_requests` of them again through the disaggregated pair.
 SERVE_APP = dict(exact=4, exact_new=32, requests=24, disagg_requests=12, clients=16, replica_gpus=0.5,
                  disconnect_after=3)
+# The data phase: `rows` token sequences of `seq` + 1 tokens (seed 1) in
+# `blocks` blocks, batches of `batch` (one epoch: rows / batch steps); then
+# `images` uint8 images (seed `seed`) in `image_blocks` blocks, scored in
+# batches of `predict_batch`.
+DATA = dict(rows=192, seq=1024, blocks=8, batch=12, images=256, image_blocks=4, predict_batch=64, seed=3)
 
 
 def _phase(name):
@@ -1121,7 +1151,7 @@ def trainer_phase(torch, card, main_first_loss, main_step_ms, moe_first_loss):
         counts_out.append(m["launches"])
     if failures:
         raise AssertionError("trainer phase: " + "; ".join(failures))
-    return counts_out
+    return counts_out, MAIN["B"] * MAIN["T"] / results[0][0]["tokens_per_sec_raw"] * 1e3
 
 
 def _mesh_trainer_report(torch, label, config, m, first_loss, driver_counts):
@@ -1303,7 +1333,7 @@ def zoo_phase(torch, card, errs):
         "mlp_losses": [losses[0], losses[-1]]}))
     if failures:
         raise AssertionError("zoo: " + "; ".join(failures))
-    return row
+    return row, vit_rate
 
 
 def _ring_chunk_checks(torch, A, R):
@@ -2281,6 +2311,209 @@ def serve_app_phase(torch, card, serve_res=None, device="cuda", cfg=None):
     return res
 
 
+def _vit_apply_fn(log_path: str, vit_kw: dict):
+    """The counterpart of flax's ``model.apply`` for the scoring actors: the
+    port's ViT forward with ``params`` (its state dict, on the actor's card)
+    as the weights, through ``torch.func.functional_call`` on a weightless
+    ("meta") ViT built once per process. Each call appends the process's
+    kernel launch counts and the batch's ms (host clock to a synchronize) to
+    ``log_path``, one JSON line."""
+    skeleton: dict = {}
+
+    def apply(params, images):
+        import torch
+        from torch.func import functional_call
+
+        from ray_tpu_torch.models import vit
+        from ray_tpu_torch.ops import attention
+
+        if "vit" not in skeleton:
+            skeleton["vit"] = vit.ViT(**vit_kw, device="meta").eval()
+        t0 = time.perf_counter()
+        out = functional_call(skeleton["vit"], params, (images,))
+        if images.device.type == "cuda":
+            torch.cuda.synchronize(images.device)
+        with open(log_path, "a") as f:
+            f.write(json.dumps({"pid": os.getpid(), "launches": attention.launch_counts(), "device": str(images.device),
+                                "ms": (time.perf_counter() - t0) * 1e3}) + "\n")
+        return out
+
+    return apply
+
+
+def _normalize(batch):
+    """uint8 images to float32 in [-2, 2): the phase's host preprocessing."""
+    return {"image": (batch["image"].astype(np.float32) / 255.0 - 0.5) / 0.25}
+
+
+def data_phase(torch, card, trainer_raw_ms=None, zoo_rate=None, device="cuda", model=None, vit_kw=None, sizes=None):
+    """Data on the card (phase 14): (a) a dataset feeds TorchTrainer and the
+    flagship step; (b) BatchPredictor scores ViT-B/16 in a GPU actor pool.
+    Returns the launches of each path: {"ingest": the worker's counts,
+    "predict": the scoring actor's}."""
+    _phase("data")
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.air.checkpoint import checkpoint_from_tensors
+    from ray_tpu_torch.air.config import RunConfig, ScalingConfig
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.models import vit as tvit
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.train import BatchPredictor, TorchPredictor
+    from ray_tpu_torch.train.flagship_loop import dataset_loop
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    cuda = device == "cuda"
+    model = model or dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8, d_ff=2816,
+                          max_seq_len=1024, remat=False, fused_loss=False, scan_unroll=8)
+    vit_kw = vit_kw if vit_kw is not None else {}
+    z = dict(DATA, **(sizes or {}))
+    rows, seq, batch, L = z["rows"], z["seq"], z["batch"], model["n_layers"]
+    steps = rows // batch
+    failures, marks = [], {}
+    t0 = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    rt.init(num_cpus=4, num_gpus=1, object_store_memory=1 << 30)
+    store = rt._global_node.raylet.store
+    pids = set()
+    try:
+        marks["init_s"] = time.perf_counter() - t0
+        # ---- (a) ingest: the dataset feeds TorchTrainer's flagship step ----
+        t = time.perf_counter()
+        tokens = np.random.default_rng(1).integers(0, model["vocab_size"], (rows, seq + 1), dtype=np.int32)
+        ds = (rd.from_numpy(np.split(tokens, z["blocks"]))
+              .map_batches(lambda b: {"inputs": b["data"][:, :-1], "targets": b["data"][:, 1:]})
+              .random_shuffle(seed=0))
+        A.reset_launch_counts()
+        result = TorchTrainer(
+            dataset_loop, train_loop_config={"model": model, "dtype": "bfloat16", "batch": batch, "param_seed": 0},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=cuda), datasets={"train": ds},
+            run_config=RunConfig(storage_path=os.path.join(scratch, "runs")),
+        ).fit()
+        m, driver_counts = result.metrics, A.launch_counts()
+        pids |= {w.pid for w in rt._global_node.raylet.workers.values() if w.pid} | {m["pid"]}
+        marks["ingest_fit_s"] = time.perf_counter() - t
+        # The driver's in-process step on the same first batch, as the trainer's.
+        first = ds.take_batch(batch)
+        cfg = tt.TransformerConfig(**model, dtype=torch.bfloat16)
+        params = tt.init_params(cfg, seed=0, device=device)
+        step = tt.make_train_step(cfg, tt.adamw(params), device=device)
+        first_tokens = torch.from_numpy(np.concatenate([first["inputs"], first["targets"][:, -1:]], 1)).to(device)
+        in_process = step(params, {"tokens": first_tokens}).item()
+        del params, step, first_tokens
+        rel = abs(m["first_loss"] - in_process) / abs(in_process)
+        med = sorted(m["step_ms"][1:])[len(m["step_ms"][1:]) // 2] if steps > 1 else float("nan")
+        wait = sum(m["wait_ms"][1:]) / max(1, len(m["wait_ms"]) - 1)
+        distinct = len({tuple(k) for k in m["row_keys"]})
+        want = {n: steps * L for n in KERNELS} if cuda else {n: 0 for n in KERNELS}
+        devices_ok = m["batch_devices"] == ([f"cuda:{torch.cuda.current_device()}"] if cuda else ["cpu"])
+        print(f"ingest: {rows} rows of {seq + 1} tokens, {z['blocks']} blocks -> map_batches -> random_shuffle(seed=0) "
+              f"-> TorchTrainer(datasets=...) -> iter_torch_batches(batch_size={batch}, drop_last=True): "
+              f"{m['steps']} steps in worker pid {m['pid']} on {m['device_name']}; batches on {m['batch_devices']}; "
+              f"{distinct} distinct rows of {len(m['row_keys'])}")
+        print(f"ingest: worker launches {m['launches']} (expected {want}); driver launches meanwhile {driver_counts}")
+        print(f"ingest: first loss {m['first_loss']:.6f}, the driver's in-process step on take_batch({batch}) "
+              f"{in_process:.6f} (relative difference {rel:.2e}, bar {TRAINER_LOSS_RTOL}); losses "
+              f"{[round(x, 4) for x in m['losses']]}")
+        print(f"ingest on {card}: step {med:.2f} ms median of the {steps - 1} after the first (CUDA events), "
+              f"{m['tokens_per_sec'] or float('nan'):.0f} tokens/s (host clock, to a synchronize), waiting in next() "
+              f"{wait:.3f} ms per step (first {m['wait_ms'][0]:.1f} ms); the trainer phase's raw step "
+              + (f"{trainer_raw_ms:.2f} ms" if trainer_raw_ms else "not measured in this run"))
+        if not devices_ok:
+            failures.append(f"ingest batches arrived on {m['batch_devices']}, not the worker's card")
+        if m["launches"] != want or any(driver_counts.values()):
+            failures.append(f"ingest: the worker launched {m['launches']} (driver {driver_counts}), not {L} per step")
+        if not rel <= TRAINER_LOSS_RTOL:
+            failures.append(f"ingest first loss {m['first_loss']} is not the in-process {in_process}")
+        if distinct != rows or m["steps"] != steps:
+            failures.append(f"ingest consumed {distinct} distinct rows in {m['steps']} steps, not {rows} in {steps}")
+        if m["pid"] == os.getpid() or not all(math.isfinite(x) for x in m["losses"]):
+            failures.append(f"ingest: loop pid {m['pid']}, losses {m['losses']}")
+        ingest = {"steps": m["steps"], "step_ms_median": med, "tokens_per_sec": m["tokens_per_sec"],
+                  "wait_ms_per_step": wait, "first_wait_ms": m["wait_ms"][0], "first_loss": m["first_loss"],
+                  "in_process_first_loss": in_process, "launches": m["launches"], "distinct_rows": distinct,
+                  "trainer_raw_step_ms": trainer_raw_ms}
+        del ds, result
+        marks["ingest_s"] = time.perf_counter() - t
+
+        # ---- (b) batch inference: BatchPredictor scores ViT in a GPU actor pool ----
+        t = time.perf_counter()
+        gc.collect()
+        used0 = store.usage()["used"]
+        log_path = os.path.join(scratch, "vit_apply.jsonl")
+        torch.manual_seed(0)
+        vit = tvit.ViT(**vit_kw, device=device).eval()
+        ckpt = checkpoint_from_tensors(vit.state_dict(), apply_fn=_vit_apply_fn(log_path, vit_kw))
+        S, n_img, pb = vit.image_size, z["images"], z["predict_batch"]
+        images = np.random.default_rng(z["seed"]).integers(0, 256, (n_img, S, S, 3), dtype=np.uint8)
+        ds = rd.from_numpy(np.split(images, z["image_blocks"]), column="image").map_batches(_normalize)
+        t_pred = time.perf_counter()
+        scored = BatchPredictor.from_checkpoint(ckpt, TorchPredictor, input_column="image", device=device).predict(
+            ds, batch_size=pb, max_scoring_workers=1, num_gpus_per_worker=1 if cuda else 0)
+        logits = np.concatenate([b["predictions"] for b in scored.iter_batches(batch_size=None)])
+        pred_s = time.perf_counter() - t_pred
+        with open(log_path) as f:
+            calls = [json.loads(line) for line in f]
+        with torch.no_grad():
+            ref = torch.cat([vit(torch.from_numpy(_normalize({"image": images[i:i + pb]})["image"]).to(device))
+                             for i in range(0, n_img, pb)])
+        mm = A.mismatch(torch.from_numpy(logits), ref.float().cpu())
+        classes = vit.head.out_features
+        del scored, ds, ckpt, vit, ref
+        gc.collect()
+        deadline = time.monotonic() + 30
+        while store.usage()["used"] > used0 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        used1 = store.usage()["used"]
+        batches = n_img // pb
+        vit_layers = vit_kw.get("num_layers", 12)
+        want = {"flash_fwd": batches * vit_layers, "flash_bwd_dkv": 0, "flash_bwd_dq": 0} if cuda else \
+            {n: 0 for n in KERNELS}
+        got = calls[-1]["launches"] if calls else {}
+        steady = sorted(c["ms"] for c in calls[1:]) or [float("nan")]
+        steady_ms = steady[len(steady) // 2]
+        print(f"predict: {n_img} uint8 images {S}^2 ({images.nbytes / 1e6:.1f} MB) in {z['image_blocks']} blocks -> "
+              f"map_batches(normalize) -> BatchPredictor(TorchPredictor, ViT, batch_size={pb}, 1 actor at "
+              f"{1 if cuda else 0} GPU): logits {logits.shape} in actor pid {calls[-1]['pid'] if calls else None} on "
+              f"{calls[-1]['device'] if calls else None}; against the in-process ViT on the same images: "
+              + " ".join(f"{k}={v:.2e}" for k, v in mm.items()) + f" (bar rel_l2 {VIT_LOGIT_RTOL})")
+        print(f"predict: actor launches {got} over {len(calls)} batches (expected {want}); object store used "
+              f"{used0} B before, {used1} B after the predictions were released")
+        print(f"predict on {card}: {n_img / pred_s:.1f} images/s end to end ({pred_s:.2f} s: the actor's start, the "
+              f"checkpoint's transfer, normalisation and scoring); in the actor {pb / steady_ms * 1e3:.1f} images/s "
+              f"({steady_ms:.2f} ms a batch of {pb}, median after the first; first {calls[0]['ms'] if calls else 0:.1f}"
+              f" ms); the zoo phase's in-process ViT-B/16 " + (f"{zoo_rate:.1f} images/s" if zoo_rate else
+                                                              "not measured in this run"))
+        if logits.shape != (n_img, classes) or not np.isfinite(logits).all():
+            failures.append(f"predict: logits {logits.shape}, finite: {bool(np.isfinite(logits).all())}")
+        if not mm["rel_l2"] <= VIT_LOGIT_RTOL:
+            failures.append(f"predict: logits off the in-process ViT's: {mm}")
+        if got != want or len(calls) != batches or any(c["pid"] == os.getpid() for c in calls):
+            failures.append(f"predict: the actor launched {got} over {len(calls)} batches, expected {want}")
+        if used1 > used0:
+            failures.append(f"predict: the object store holds {used1 - used0} B more after the predictions were released")
+        predict = {"images_per_s_end_to_end": n_img / pred_s, "actor_images_per_s": pb / steady_ms * 1e3,
+                   "actor_batch_ms": steady_ms, "first_batch_ms": calls[0]["ms"] if calls else None,
+                   "logits_vs_in_process": mm, "launches": got, "store_used_before": used0, "store_used_after": used1,
+                   "zoo_images_per_s": zoo_rate}
+        marks["predict_s"] = time.perf_counter() - t
+    finally:
+        rt.shutdown()
+        shutil.rmtree(scratch, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = sorted(p for p in pids if _alive(p))
+    print(f"data: worker pids {sorted(pids)}, {len(left)} left after shutdown()")
+    if left:
+        failures.append(f"worker processes {left} outlived shutdown()")
+    marks["phase_s"] = time.perf_counter() - t0
+    print("data: " + json.dumps({"ingest": ingest, "predict": predict, "sections_s": marks}))
+    if failures:
+        raise AssertionError("data: " + "; ".join(failures))
+    return {"ingest": m["launches"], "predict": got}
+
+
 def main() -> int:
     import torch
 
@@ -2296,18 +2529,23 @@ def main() -> int:
     serve_res = serve_phase(torch, smi)
     moe_counts, moe_first_loss, _ = moe_train_phase(torch, smi)
     serve_phase(torch, smi, moe=True)
-    worker_counts, moe_worker_counts = trainer_phase(torch, smi, first_loss, step_ms, moe_first_loss)
+    (worker_counts, moe_worker_counts), trainer_raw_ms = trainer_phase(torch, smi, first_loss, step_ms, moe_first_loss)
     for row in kernels:
         row["worker_launches"] = worker_counts[row["name"]]
         row["moe_launches"] = moe_counts[row["name"]]
         row["moe_worker_launches"] = moe_worker_counts[row["name"]]
-    kernels.append(zoo_phase(torch, smi, errs))
+    zoo_row, vit_rate = zoo_phase(torch, smi, errs)
+    kernels.append(zoo_row)
     ring_row, parallel_counts = parallel_phase(torch, smi, first_loss, step_ms)
     for row in kernels[:3]:
         row["parallel_launches"] = parallel_counts[row["name"]]
     kernels.append(ring_row)
     kernels[0]["mpmd_launches"] = a10_phase(torch)
     serve_app_phase(torch, smi, serve_res)
+    data = data_phase(torch, smi, trainer_raw_ms, vit_rate)
+    for row in kernels:
+        row["data_launches"] = data["predict"]["flash_fwd"] if row["name"] == "flash_fwd_vit" else \
+            data["ingest"].get(row["name"], 0)
     print(f"script wall time {time.perf_counter() - t0:.1f} s (from the device phase; imports before it)")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -324,6 +324,8 @@ def kill(actor: ActorHandle, *, no_restart: bool = True):
             "kill(%s) did not confirm within the timeout; actor teardown "
             "continues asynchronously", actor.actor_id[:8],
         )
+    if no_restart:
+        cw.release_actor_args(actor.actor_id)
 
 
 def get_actor(name: str, namespace: str = "") -> ActorHandle:

@@ -290,6 +290,9 @@ class CoreWorker:
         self._actor_seq: dict[str, int] = collections.defaultdict(int)
         self._actor_pending: dict[str, set] = collections.defaultdict(set)
         self._actor_submit_locks: dict[str, asyncio.Lock] = collections.defaultdict(asyncio.Lock)
+        # The refs an actor's creation arguments rode in, pinned for its
+        # restarts: released when this process kills it for good.
+        self._actor_creation_args: dict[str, list] = {}
 
         # Execution state (worker mode).
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="task-exec")
@@ -906,6 +909,11 @@ class CoreWorker:
         else:
             self._push_to_owner(ref, "incref")
 
+    def release_actor_args(self, actor_id: str) -> None:
+        """Unpin the creation arguments of an actor this process created and
+        killed with no restart: nothing will run its constructor again."""
+        self._unpin_args(self._actor_creation_args.pop(actor_id, []))
+
     def _unpin_args(self, arg_refs):
         for ref in arg_refs:
             if ref.owner_addr is None or tuple(ref.owner_addr) == tuple(self.address):
@@ -1221,11 +1229,9 @@ class CoreWorker:
             if local or (is_owner and in_plasma):
                 try:
                     rem = self._remaining(deadline)
-                    view = self.store.get_view(oid_hex, timeout=min(rem, 5.0) if rem else 5.0)
-                    try:
-                        return serialization.deserialize(view)
-                    finally:
-                        self.store.release(oid_hex)
+                    # The pin lasts as long as what is deserialized zero-copy from it.
+                    return serialization.deserialize(
+                        self.store.get_pinned(oid_hex, timeout=min(rem, 5.0) if rem else 5.0))
                 except GetTimeoutError:
                     raise
                 except Exception:
@@ -1239,11 +1245,8 @@ class CoreWorker:
                 # Owner reports a plasma copy: pull it through our raylet.
                 try:
                     rem = self._remaining(deadline)
-                    view = self.store.get_view(oid_hex, timeout=min(rem, 30.0) if rem else 30.0)
-                    try:
-                        return serialization.deserialize(view)
-                    finally:
-                        self.store.release(oid_hex)
+                    return serialization.deserialize(
+                        self.store.get_pinned(oid_hex, timeout=min(rem, 30.0) if rem else 30.0))
                 except GetTimeoutError:
                     raise
                 except Exception:
@@ -1448,6 +1451,8 @@ class CoreWorker:
         )
         for ref in arg_refs:
             self._pin_arg(ref)
+        if arg_refs:
+            self._actor_creation_args[actor_id.hex()] = list(arg_refs)
         # Bounded per-attempt ack (acall retries on TimeoutError): a
         # register_actor request/reply silently lost on the wire used to
         # park .remote() FOREVER — no timeout, no backstop, not even the

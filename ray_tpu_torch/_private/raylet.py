@@ -312,6 +312,11 @@ class Raylet:
         self.object_index = create_index(self.arena_name + "_idx")
         spill_dir = self.cfg.object_spill_dir or os.path.join(session_dir, "spill", self.node_id[:8])
         self.store = StoreCore(self.arena, spill_dir, index=self.object_index)
+        # Clients' lifetime pins (StoreClient.get_pinned): pid -> {hold id:
+        # (object id, kind, index token)}, released by store_unhold or when
+        # the process dies; an unhold that overtook its hold waits here.
+        self._store_holds: dict[int, dict] = {}
+        self._early_unholds: set[str] = set()
 
         self.resources_total = dict(resources or {"CPU": os.cpu_count() or 1})
         self.resources_total.setdefault("memory", 4 * 1024 * 1024 * 1024)
@@ -659,6 +664,32 @@ class Raylet:
     async def rpc_store_release(self, req):
         self.store.release(req["object_id"])
         return {"ok": True}
+
+    @schema(hold=str, pid=int, object_id=str, kind=str, slot=int, version=int)
+    async def rpc_store_hold(self, req):
+        held = (req["object_id"], req["kind"], (req["slot"], req["version"]))
+        if req["hold"] in self._early_unholds:
+            self._early_unholds.discard(req["hold"])
+            self._release_hold(*held)
+        else:
+            self._store_holds.setdefault(req["pid"], {})[req["hold"]] = held
+        return {"ok": True}
+
+    @schema(hold=str, pid=int)
+    async def rpc_store_unhold(self, req):
+        held = self._store_holds.get(req["pid"], {}).pop(req["hold"], None)
+        if held is None:
+            self._early_unholds.add(req["hold"])
+        else:
+            self._release_hold(*held)
+        return {"ok": True}
+
+    def _release_hold(self, object_id: str, kind: str, token: tuple):
+        if kind == "idx":
+            if self.store.index is not None:
+                self.store.index.release(token)
+        else:
+            self.store.release(object_id)
 
     @schema(object_id=str)
     async def rpc_free_object(self, req):
@@ -1864,6 +1895,8 @@ class Raylet:
             "worker_death", f"{worker.worker_id[:8]}:{reason[:60]}"
         )
         logger.warning("worker %s died: %s", worker.worker_id[:8], reason)
+        for held in self._store_holds.pop(worker.pid, {}).values():
+            self._release_hold(*held)
         if worker.actor_spec is not None:
             # Release the actor's lifetime resource hold.
             self._release_for(worker.actor_spec)

@@ -224,6 +224,22 @@ def instruments() -> dict:
                 "Per-request mean inter-token latency (first -> last token).",
                 boundaries=_LATENCY_BOUNDS,
             ),
+            # --- Data executor (data/_internal/) ---
+            "data_rows": m.Counter(
+                "ray_tpu_data_output_rows_total",
+                "Rows produced per Data operator.",
+                tag_keys=("op",),
+            ),
+            "data_bytes": m.Counter(
+                "ray_tpu_data_output_bytes_total",
+                "Bytes produced per Data operator.",
+                tag_keys=("op",),
+            ),
+            "data_blocks": m.Counter(
+                "ray_tpu_data_output_blocks_total",
+                "Blocks produced per Data operator.",
+                tag_keys=("op",),
+            ),
             # --- actor lifecycle (gcs.py) ---
             "actor_restarts": m.Counter(
                 "ray_tpu_actor_restarts_total", "Actor restarts driven by the GCS."

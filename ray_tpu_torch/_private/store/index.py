@@ -123,6 +123,8 @@ class ShmIndex:
         return off.value, size.value, (slot.value, ver.value)
 
     def release(self, token: tuple):
+        if self._closed:  # a pinned view collected after the client closed
+            return
         slot, version = token
         self._lib.idx_release(self._h, slot, version)
 

@@ -20,6 +20,7 @@ import asyncio
 import logging
 import os
 import time
+import weakref
 from dataclasses import dataclass, field
 
 from ray_tpu_torch._private import flight_recorder
@@ -258,7 +259,10 @@ class StoreCore:
 
     def usage(self) -> dict:
         """Summary only — shipped in every raylet heartbeat, so it must stay
-        O(1); per-object metadata goes through objects_info()."""
+        O(1); per-object metadata goes through objects_info(). Blocks whose
+        last reader has let go are freed first (a short list), so "used"
+        falls within a heartbeat of the last pinned view's collection."""
+        self.drain_deferred_frees()
         return {
             "capacity": self.arena.capacity,
             "used": self.arena.used(),
@@ -410,19 +414,41 @@ class StoreClient:
         shared arena, and numpy arrays deserialized zero-copy from it would
         otherwise be writable in place — one caller's mutation would corrupt
         the sealed object for every other reader on the node."""
+        view, pin = self._pin(object_id_hex, timeout)
+        with self._pins_lock:
+            self._pins.setdefault(object_id_hex, []).append(pin)
+        return view
+
+    def _pin(self, object_id_hex: str, timeout: float | None) -> tuple[memoryview, tuple]:
+        """(read-only view, pin): ("idx", token) through the shm index, or
+        ("rpc", None) through the daemon."""
         if self.index is not None:
             hit = self.index.get_pinned(object_id_hex)
             if hit is not None:
                 offset, size, token = hit
-                with self._pins_lock:
-                    self._pins.setdefault(object_id_hex, []).append(("idx", token))
-                return self.arena.read(offset, size).toreadonly()
+                return self.arena.read(offset, size).toreadonly(), ("idx", token)
         resp = self.raylet.call(
             "store_get", {"object_id": object_id_hex, "timeout": timeout}, timeout=timeout
         )
-        with self._pins_lock:
-            self._pins.setdefault(object_id_hex, []).append(("rpc", None))
-        return self.arena.read(resp["offset"], resp["size"]).toreadonly()
+        return self.arena.read(resp["offset"], resp["size"]).toreadonly(), ("rpc", None)
+
+    def get_pinned(self, object_id_hex: str, timeout: float | None = None) -> "PinnedView":
+        """``get_view`` whose pin lasts as long as the returned view (see
+        ``PinnedView``). The pin is registered with the daemon as this
+        process's hold, and the daemon releases it: when the view is
+        collected, or when this process dies holding it."""
+        view, (kind, token) = self._pin(object_id_hex, timeout)
+        hold = {"hold": os.urandom(8).hex(), "pid": os.getpid(), "object_id": object_id_hex, "kind": kind,
+                "slot": token[0] if token else 0, "version": token[1] if token else 0}
+        self._spawn_push("store_hold", hold)
+        return PinnedView(self, hold, view)
+
+    def _spawn_push(self, method: str, payload: dict) -> None:
+        """Fire and forget, from any thread, the loop's own included."""
+        try:
+            self.raylet._io.spawn(self.raylet.apush(method, payload))
+        except RuntimeError:  # the IO loop is gone: the process is shutting down
+            pass
 
     def contains(self, object_id_hex: str) -> bool:
         if self.index is not None:
@@ -454,3 +480,22 @@ class StoreClient:
         if self.index is not None:
             self.index.close(unlink=False)
         self.arena.close(unlink=False)
+
+
+class PinnedView:
+    """A pinned, read-only view of a sealed object that exports its bytes
+    (the buffer protocol, PEP 688) and releases its pin when it is garbage:
+    each buffer taken from it, and so each array deserialized zero-copy from
+    it, keeps it alive. The store frees no arena block a reader pins, so such
+    an array stays valid after the object's last reference is dropped (the
+    JAX package releases the pin at once, and a later object can overwrite
+    the array: ROADMAP C11)."""
+
+    __slots__ = ("_view", "__weakref__")
+
+    def __init__(self, store: StoreClient, hold: dict, view: memoryview):
+        self._view = view
+        weakref.finalize(self, store._spawn_push, "store_unhold", {"hold": hold["hold"], "pid": hold["pid"]})
+
+    def __buffer__(self, flags: int) -> memoryview:
+        return self._view.__buffer__(flags)

@@ -31,6 +31,10 @@ report then carries the mesh's axis sizes as ``mesh``). Weights from a
 seed and the batch from a seed are drawn exactly as
 ``init_params(cfg, seed)`` and ``torch.randint`` on a generator seeded
 ``batch_seed`` on the worker's device draw them.
+
+``dataset_loop`` trains the same model on the trainer's dataset instead of
+one fixed batch: one epoch of the worker's shard through
+``iter_torch_batches`` (the ingest path).
 """
 
 from __future__ import annotations
@@ -50,20 +54,12 @@ def train_loop(config: dict) -> None:
     start_time = time.time()
     device = session.get_device()
     cuda = device.type == "cuda"
-    cfg = tt.TransformerConfig(**config["model"], dtype=getattr(torch, config.get("dtype", "bfloat16")))
     batch, seq = config["batch"], config["seq"]
     warmup, rounds = config.get("warmup", 2), config.get("rounds", 4)
     chunk = config.get("chunk", 8)
     lag = max(1, min(config.get("lag", 4), chunk))
-    if "params" in config:
-        params = tt.params_from_jax(config["params"], cfg, device=device)
-    else:
-        params = tt.init_params(cfg, seed=config.get("param_seed", 0), device=device)
-    n_params = tt.num_params(params)
     mesh = session.get_mesh() if config.get("mesh") else None
-    if mesh is not None:
-        params = tt.shard_params(params, cfg, mesh)
-    step = tt.make_train_step(cfg, tt.adamw(params), mesh=mesh, device=device)
+    cfg, params, n_params, step = _model(config, device, mesh)
     if "tokens" in config:
         tokens = torch.as_tensor(config["tokens"]).to(device)
     else:
@@ -135,6 +131,102 @@ def train_loop(config: dict) -> None:
     if cuda:
         final["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     session.report(final)
+
+
+def _model(config: dict, device, mesh=None):
+    """(cfg, params, n_params, train step) from ``config``'s ``model``,
+    ``dtype`` and ``params`` or ``param_seed``, on ``device``."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(**config["model"], dtype=getattr(torch, config.get("dtype", "bfloat16")))
+    if "params" in config:
+        params = tt.params_from_jax(config["params"], cfg, device=device)
+    else:
+        params = tt.init_params(cfg, seed=config.get("param_seed", 0), device=device)
+    n_params = tt.num_params(params)
+    if mesh is not None:
+        params = tt.shard_params(params, cfg, mesh)
+    return cfg, params, n_params, tt.make_train_step(cfg, tt.adamw(params), mesh=mesh, device=device)
+
+
+def dataset_loop(config: dict) -> None:
+    """The flagship step fed by the trainer's dataset: one epoch of
+    ``session.get_dataset_shard("train").iter_torch_batches(
+    batch_size=config["batch"], drop_last=True)`` on the worker's device. Each batch holds ``inputs`` and ``targets`` ([B, T],
+    the targets the inputs shifted by one), joined on the device into the
+    step's ``tokens`` [B, T+1]. The first step runs alone (its loss read at
+    once); the rest are issued back to back and their losses read at the
+    end. Each step's loss is reported; the last report carries:
+
+        steps, losses, first_loss, wait_ms (host ms in each ``next()`` on
+        the iterator), step_ms (each step's span: CUDA events on a card, the
+        host clock with a synchronous step elsewhere), tokens_per_sec (the
+        steps after the first, host clock to a synchronize), row_keys (each
+        row's first 4 input tokens, in order), batch_devices (the devices the
+        batches arrived on), launches (the flash kernels' counts in this
+        worker), device_name, pid
+
+    ``config`` holds ``model``, ``dtype``, ``batch`` and ``params`` or
+    ``param_seed``, as ``train_loop``'s.
+    """
+    import torch
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.ops import attention
+
+    device = session.get_device()
+    cuda = device.type == "cuda"
+    _, params, _, step = _model(config, device)
+    attention.reset_launch_counts()
+    it = iter(session.get_dataset_shard("train").iter_torch_batches(batch_size=config["batch"], drop_last=True))
+    losses, keys, devices, wait_ms, marks = [], [], set(), [], []
+    t_rest = None
+    while True:
+        t0 = time.perf_counter()
+        try:
+            b = next(it)
+        except StopIteration:
+            break
+        wait_ms.append((time.perf_counter() - t0) * 1e3)
+        devices.update(str(t.device) for t in b.values())
+        keys.append(b["inputs"][:, :4])
+        tokens = torch.cat([b["inputs"], b["targets"][:, -1:]], dim=1)
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(params, {"tokens": tokens}))
+            end.record()
+            marks.append((start, end))
+        else:
+            t1 = time.perf_counter()
+            losses.append(step(params, {"tokens": tokens}))
+            marks.append((time.perf_counter() - t1) * 1e3)
+        if len(losses) == 1:
+            session.report({"step": 0, "loss": losses[0].item()})
+            t_rest = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize(device)
+    rest_s = time.perf_counter() - t_rest if t_rest is not None else 0.0
+    values = torch.stack(losses).tolist() if losses else []
+    for i, loss in enumerate(values[1:], 1):
+        session.report({"step": i, "loss": loss})
+    seq = b["inputs"].shape[1] if keys else 0
+    session.report({
+        "final": True,
+        "steps": len(values),
+        "losses": values,
+        "first_loss": values[0] if values else None,
+        "wait_ms": wait_ms,
+        "step_ms": [s.elapsed_time(e) for s, e in marks] if cuda else marks,
+        "tokens_per_sec": (len(values) - 1) * config["batch"] * seq / rest_s if len(values) > 1 else None,
+        "row_keys": torch.cat(keys).tolist() if keys else [],
+        "batch_devices": sorted(devices),
+        "launches": attention.launch_counts(),
+        "device_name": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "pid": os.getpid(),
+    })
 
 
 def _profile(run, steps: int, cuda: bool) -> dict:

@@ -29,7 +29,10 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.util.collective, ray_tpu_torch.util.collective.nccl_group, "
         "ray_tpu_torch.experimental.device_object, ray_tpu_torch.experimental.channel, "
         "ray_tpu_torch.dag, ray_tpu_torch.parallel.mpmd_pipeline, ray_tpu_torch.serve._private.controller, "
-        "ray_tpu_torch.serve._private.http_proxy, ray_tpu_torch.serve.llm.kv_transfer\n"
+        "ray_tpu_torch.serve._private.http_proxy, ray_tpu_torch.serve.llm.kv_transfer, ray_tpu_torch.data, "
+        "ray_tpu_torch.data.preprocessors, ray_tpu_torch.data.datasource.sql_datasource, "
+        "ray_tpu_torch.data.datasource.webdataset_datasource, ray_tpu_torch.data.datasource.mongo_datasource, "
+        "ray_tpu_torch.train.predictor\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -64,7 +67,14 @@ def test_no_source_imports_jax_or_ray_tpu():
                    "experimental/channel/device_envelope.py", "experimental/channel/resident_loop.py",
                    "dag/dag_node.py", "dag/compiled.py", "parallel/mpmd_pipeline.py", "serve/api.py",
                    "serve/_private/controller.py", "serve/_private/asgi.py", "serve/llm/kv_transfer.py",
-                   "serve/llm/deployment.py"):
+                   "serve/llm/deployment.py", "data/block.py", "data/context.py", "data/_internal/logical_plan.py",
+                   "data/_internal/stats.py", "data/_internal/executor.py", "data/_internal/shuffle.py",
+                   "data/aggregate.py", "data/grouped_data.py", "data/dataset.py", "data/iterator.py",
+                   "data/dataset_pipeline.py", "data/datasource/datasource.py", "data/datasource/partitioning.py",
+                   "data/datasource/sql_datasource.py", "data/datasource/webdataset_datasource.py",
+                   "data/datasource/mongo_datasource.py", "data/read_api.py", "data/__init__.py",
+                   "data/preprocessor.py", "data/preprocessors/__init__.py", "data/preprocessors/extended.py",
+                   "train/predictor.py"):
         assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -94,6 +104,38 @@ def test_serve_imports_no_http_or_schema_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_data_and_predictors_need_neither_pyarrow_nor_pandas():
+    """The card's machine has neither package: no module of the port imports
+    one at module level, and the data package and the predictors import and
+    move numpy blocks with both blocked."""
+    for path in sorted((ROOT / "ray_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import) for a in n.names}
+        names |= {n.module.split(".")[0] for n in top if isinstance(n, ast.ImportFrom) and n.module and not n.level}
+        assert not names & {"pyarrow", "pandas"}, f"{path.relative_to(ROOT)} imports {sorted(names)}"
+    code = (
+        "import sys\n"
+        "for name in ('pyarrow', 'pandas'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "import ray_tpu_torch.data as rd, ray_tpu_torch.data.preprocessors, ray_tpu_torch.train.predictor\n"
+        "from ray_tpu_torch.data.block import BlockAccessor\n"
+        "block = BlockAccessor.batch_to_block([{'a': 1, 'x': np.ones(3)}, {'a': 2, 'x': np.zeros(3)}])\n"
+        "acc = BlockAccessor(block)\n"
+        "assert acc.num_rows() == 2 and acc.schema().shapes == ((), (3,))\n"
+        "assert acc.to_batch('numpy')['a'].tolist() == [1, 2]\n"
+        "try:\n"
+        "    acc.to_batch('pandas')\n"
+        "except ImportError as e:\n"
+        "    print(e)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "batch_format=\"pandas\" needs the 'pandas' package, which is not installed"
 
 
 def test_worker_runtime_imports_no_torch():
