@@ -180,10 +180,49 @@ line:
    phase's. A "data: {...}" line with each part's seconds; the kernels
    line's rows get "data_launches".
 
+15. rllib: ray_tpu_torch.rllib on the card. (a) PPO on the port's numpy
+   CartPole-v1 at tests/test_rllib.py's config (2 rollout workers x 4 envs
+   on the CPU, train_batch_size 2048, minibatches of 256, 8 SGD iterations,
+   lr 3e-4, entropy_coeff 0.01, seed 0) in one cluster, init(num_cpus=4,
+   num_gpus=1), with one learner actor holding the card
+   (.resources(num_learners=1, num_gpus_per_learner=1)). The first round by
+   hand: one sample, then every minibatch update on the learner actor and on
+   an in-process learner on this card from the same weights (total_loss,
+   grad_norm and kl within RLLIB_ROUND_RTOL, the weights after the round
+   compared); then Algorithm.step to the reference's bar (episode_reward_mean
+   120 within 20 iterations), compute_single_action in {0, 1}, and no worker
+   left after shutdown(). Prints env steps/s, sample ms, the learner round and
+   the ms of a minibatch update (actor and in-process), the weight sync and
+   the iterations to the bar. (b) The learner at the Atari module's shape
+   (RLModuleSpec.from_spaces(Box(0, 1, (84, 84, 4)), Discrete(6)): convs
+   (16, 8, 4), (32, 4, 2), (64, 3, 1), hiddens (64, 64)) in this process on
+   one seeded synthetic batch of 2000 rows (226 MB of f32 frames): one PPO
+   round of 8 SGD iterations of minibatches of 128, with TF32 switched on
+   around it (the learner's scoped flag keeps its update in full f32); the
+   first minibatch's metrics against the same learner on the CPU within
+   RLLIB_ATARI_RTOL and its gradients within RLLIB_ATARI_GRAD_RTOL, and a
+   control with TF32 allowed whose gradients must part by more than that; ms a minibatch update, samples/s, peak memory, and one
+   profiled update's device ms by kind. (c) The Decision Transformer at
+   tests/test_rllib_algorithms.py's settings (batch 64, context 20, embed 64,
+   2 layers, 2 heads, 150 updates an iteration, seed 0), f32 on the card, on
+   the scripted-expert data written with the port's JsonWriter: one forward
+   and backward of its loss on the kernels against their plain versions
+   (MATCH_TOL's f32 bars over the loss and every gradient) launching each
+   kernel twice, then training to the reference's bar (120 within 4
+   iterations) with every launch counted (2 of each kernel an update, 2
+   forwards an evaluation step), ms an update; and the forward kernel at DT's
+   shape (f32 B 64, T 60, H 2, D 32, causal, with LSE) against its plain
+   version, SDPA in f32 and its bound at the f32 (non-tensor-core) peak, and
+   the dK/dV and dQ kernels there likewise (beside the plain backward and
+   SDPA's backward in f32, each computing dq, dk and dv). An "rllib: {...}"
+   line; the kernels line gains rows "flash_fwd_dt", "flash_bwd_dkv_dt" and
+   "flash_bwd_dq_dt", which carry DT's launches as "rllib_launches" (the
+   f32 kernels; the other rows' "rllib_launches" are 0).
+
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
 Phases run in the order 1-6, 8, 9, 7 (the trainer runs in one cluster), 10,
-11, 12, 13, 14.
+11, 12, 13, 14, 15.
 """
 
 from __future__ import annotations
@@ -209,6 +248,7 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 peak without tensor cores (FMA units), at 700 W
 MAIN = dict(B=12, T=1024, H=8, D=128)  # attention shapes of the main path
 STEPS = 10  # timed train steps, after one warm-up step
 PROFILED = 3  # further steps under torch.profiler, after the timed ones
@@ -300,6 +340,37 @@ SERVE_APP = dict(exact=4, exact_new=32, requests=24, disagg_requests=12, clients
 # `images` uint8 images (seed `seed`) in `image_blocks` blocks, scored in
 # batches of `predict_batch`.
 DATA = dict(rows=192, seq=1024, blocks=8, batch=12, images=256, image_blocks=4, predict_batch=64, seed=3)
+# The rllib phase. (a) PPO on CartPole-v1 at tests/test_rllib.py's config
+# (BASELINE.json's "RLlib PPO CartPole-v1": CPU rollout workers, the learner on
+# the accelerator): the reference test's reward bar and iteration budget.
+# (b) The learner at the Atari module's shape (84 x 84 x 4 frames, Pong's 6
+# actions) on one synthetic batch of PPOConfig's default train_batch_size.
+# (c) The Decision Transformer at tests/test_rllib_algorithms.py's settings,
+# on its scripted-expert data (`dt_episodes` episodes).
+RLLIB = dict(ppo_iters=20, ppo_bar=120.0, workers=2, envs=4, train_batch=2048, minibatch=256, sgd_iters=8,
+             atari_rows=2000, atari_minibatch=128, atari_sgd_iters=8, dt_iters=4, dt_bar=120.0, dt_episodes=25,
+             dt_updates=150, dt_timed=20)
+# The Atari-shaped update on the card against the same update on the CPU: the
+# learner runs its f32 convolutions and matmuls in full f32 inside a scoped
+# flag (core/learner.py full_f32), so f32 summation order is the only
+# difference. Two bars: the first minibatch's metrics (total_loss, grad_norm,
+# policy_loss, vf_loss: relative difference) and its gradients (rel_l2 over
+# all of them). A control computes the same gradients with TF32 allowed, not
+# through the learner's flag: it must part from the CPU by more than the
+# gradient bar, or the check could not tell TF32 from full f32. On an H100
+# (PERF.md) the learner's update read at most 6.6e-7 on the metrics and 2.5e-7
+# on the gradients; the TF32 control 1.5e-5 to 3.2e-5 and 5.9e-4. The batch
+# means damp TF32's rounding, so the metrics' bar sits far below TF32's ~1e-3.
+RLLIB_ATARI_RTOL = 3e-6
+RLLIB_ATARI_GRAD_RTOL = 1e-5
+# The remote learner's round against the in-process learner's on the same card,
+# weights and minibatches: the same code on the same device.
+RLLIB_ROUND_RTOL = 1e-5
+DT_SHAPE = dict(B=64, T=60, H=2, D=32)  # DT's attention: batch 64, 3 x context 20, 2 heads of 32
+# Kinds of device work in a learner update (convolutions first: cuDNN's
+# kernel names also carry "xmma").
+RLLIB_PROFILE_GROUPS = (("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
+                        ("host-to-device copy", ("Memcpy HtoD",))) + PROFILE_GROUPS
 
 
 def _phase(name):
@@ -366,6 +437,9 @@ def kernels_phase(torch):
         ("tq192<tk", "bf16", 2, 192, 1024, 8, 128, True, 0),
         # ViT-B/16's attention: 196 patches + the class token, non-causal
         ("vit", "bf16", VIT["B"], VIT["T"], VIT["T"], VIT["H"], VIT["D"], False, 0),
+        # The Decision Transformer's (rllib phase): f32, T 60 below one tile, D 32; and its bf16 twin
+        ("dt", "f32", DT_SHAPE["B"], DT_SHAPE["T"], DT_SHAPE["T"], DT_SHAPE["H"], DT_SHAPE["D"], True, 0),
+        ("dt", "bf16", DT_SHAPE["B"], DT_SHAPE["T"], DT_SHAPE["T"], DT_SHAPE["H"], DT_SHAPE["D"], True, 0),
     ]
     errs, failures = {}, []
     for i, (name, dt, B, Tq, Tk, H, D, causal, window) in enumerate(cases):
@@ -395,6 +469,9 @@ def kernels_phase(torch):
                          "flash_bwd_dq": (m["dq"],)})
         if name == "vit":
             errs["flash_fwd_vit"] = (m["out"],)
+        if (name, dt) == ("dt", "f32"):
+            errs.update({"flash_fwd_dt": (m["out"], m["lse"]), "flash_bwd_dkv_dt": (m["dk"], m["dv"]),
+                         "flash_bwd_dq_dt": (m["dq"],)})
         del q, k, v, dout, out_ref, lse_ref, dq_ref, dk_ref, dv_ref, out, out_primal, lse, dq, dk, dv, again
     if failures:
         raise AssertionError("kernel disagrees with its plain version: " + "; ".join(failures))
@@ -747,10 +824,10 @@ def _percentile(xs, q):
     return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
 
 
-def _kinds(us: dict, per: float) -> dict:
+def _kinds(us: dict, per: float, kinds=PROFILE_GROUPS) -> dict:
     groups = {}
     for key, t in us.items():
-        group = next((g for g, words in PROFILE_GROUPS if any(w in key for w in words)), "other")
+        group = next((g for g, words in kinds if any(w in key for w in words)), "other")
         groups[group] = groups.get(group, 0.0) + t / 1e3 / per
     return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
 
@@ -2514,6 +2591,409 @@ def data_phase(torch, card, trainer_raw_ms=None, zoo_rate=None, device="cuda", m
     return {"ingest": m["launches"], "predict": got}
 
 
+def _dt_expert_data(path: str, episodes: int) -> int:
+    """tests/test_rllib_algorithms.py's scripted-expert CartPole data (a PD
+    controller, ~200 reward an episode) through the port's env and
+    JsonWriter; returns the row count."""
+    from ray_tpu_torch.rllib.env import make
+    from ray_tpu_torch.rllib.offline import JsonWriter
+    from ray_tpu_torch.rllib.policy.sample_batch import ACTIONS, DONES, NEXT_OBS, OBS, REWARDS, SampleBatch
+
+    env = make("CartPole-v1")
+    rows = {k: [] for k in (OBS, ACTIONS, REWARDS, DONES, NEXT_OBS)}
+    for ep in range(episodes):
+        obs, _ = env.reset(seed=ep)
+        for _ in range(200):
+            a = 1 if (obs[2] + 0.5 * obs[3]) > 0 else 0
+            nobs, r, term, trunc, _ = env.step(a)
+            rows[OBS].append(np.asarray(obs, np.float32))
+            rows[ACTIONS].append(np.int64(a))
+            rows[REWARDS].append(np.float32(r))
+            rows[DONES].append(np.float32(term or trunc))
+            obs = nobs
+            rows[NEXT_OBS].append(np.asarray(obs, np.float32))
+            if term or trunc:
+                break
+        rows[DONES][-1] = np.float32(1.0)  # close the final episode
+    writer = JsonWriter(path)
+    writer.write(SampleBatch({k: np.asarray(v) for k, v in rows.items()}))
+    writer.close()
+    return len(rows[OBS])
+
+
+def _close_metrics(got: dict, want: dict, keys, rtol) -> dict:
+    """Relative differences of the named metrics, and whether each is within rtol."""
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in keys}
+    return {k: (r, r <= rtol) for k, r in rel.items()}
+
+
+def rllib_phase(torch, card, device="cuda", sizes=None):
+    """RLlib on the card (phase 15): (a) PPO on CartPole-v1, CPU rollout
+    workers and one learner actor holding the card; (b) the learner at the
+    Atari module's shape in this process, against the same update on the
+    CPU; (c) the Decision Transformer, its attention on the flash kernels.
+    Returns (the flash kernels' launches in the DT run, the kernels line's
+    rows for the three kernels at DT's shape: none on the CPU)."""
+    _phase("rllib")
+    import torch.nn.functional as F
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib import DTConfig, PPOConfig
+    from ray_tpu_torch.rllib.algorithms.dt.dt import dt_loss
+    from ray_tpu_torch.rllib.algorithms.ppo.ppo import ppo_loss
+    from ray_tpu_torch.rllib.core.learner import Learner, _host_metrics, global_norm, to_device
+    from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec, tree_leaves
+    from ray_tpu_torch.rllib.env import Box, Discrete
+    from ray_tpu_torch.rllib.policy.sample_batch import (
+        ACTIONS, ADVANTAGES, LOGPS, OBS, VALUE_TARGETS, VF_PREDS, SampleBatch,
+    )
+
+    cuda = device == "cuda"
+    z = dict(RLLIB, **(sizes or {}))
+    failures, marks, res = [], {}, {"card": card}
+    t0 = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_rllib_")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # ---- (a) PPO on CartPole-v1: CPU rollout workers, a learner actor on the card ----
+    rt.init(num_cpus=4, num_gpus=1, object_store_memory=1 << 30)
+    pids = set()
+    try:
+        marks["init_s"] = time.perf_counter() - t0
+        t = t_ppo = time.perf_counter()
+        cfg = (PPOConfig().environment("CartPole-v1")
+               .rollouts(num_rollout_workers=z["workers"], num_envs_per_worker=z["envs"])
+               .training(lr=3e-4, train_batch_size=z["train_batch"], sgd_minibatch_size=z["minibatch"],
+                         num_sgd_iter=z["sgd_iters"], entropy_coeff=0.01)
+               .resources(num_learners=1, num_gpus_per_learner=1, device=device)
+               .debugging(seed=0))
+        algo = cfg.build()
+        learner_info = algo.learner_group.device_info()[0]
+        pids |= {w.pid for w in rt._global_node.raylet.workers.values() if w.pid} | {learner_info["pid"]}
+        marks["ppo_build_s"] = time.perf_counter() - t
+        want_dev = f"cuda:{torch.cuda.current_device()}" if cuda else "cpu"
+        print(f"ppo: learner actor pid {learner_info['pid']} on {learner_info['device']} "
+              f"({learner_info['device_name']}); {z['workers']} rollout workers x {z['envs']} envs on the CPU")
+        if learner_info["device"] != want_dev or learner_info["pid"] == os.getpid() or (
+                cuda and learner_info["device_name"] != torch.cuda.get_device_name(0)):
+            failures.append(f"ppo: the learner actor is on {learner_info}, not this card in a process of its own")
+        # The first round by hand: the learner actor and an in-process learner on
+        # this card, from the same weights, through the same minibatches.
+        loss_cfg = {"clip_param": cfg.clip_param, "vf_clip_param": cfg.vf_clip_param,
+                    "vf_loss_coeff": cfg.vf_loss_coeff, "entropy_coeff": cfg.entropy_coeff}
+        w0 = algo.learner_group.get_weights()
+        local = Learner(algo.module_spec, ppo_loss, cfg.lr, cfg.grad_clip, cfg.seed, device=device)
+        local.set_weights(w0)
+        per_worker = max(1, cfg.train_batch_size // z["workers"] // z["envs"])
+        t = time.perf_counter()
+        batch = SampleBatch.concat_samples(algo.workers.sample(per_worker))
+        sample_s = time.perf_counter() - t
+        algo._timesteps_total += batch.count
+        remote_ms, local_ms, pairs = [], [], []
+        for epoch in range(cfg.num_sgd_iter):
+            for mb in batch.minibatches(min(cfg.sgd_minibatch_size, batch.count), seed=epoch):
+                t = time.perf_counter()
+                rm = algo.learner_group.update(mb, loss_cfg)
+                remote_ms.append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                lm = local.update(mb, loss_cfg)
+                sync()
+                local_ms.append((time.perf_counter() - t) * 1e3)
+                pairs.append((rm, lm))
+        t = time.perf_counter()
+        algo.sync_worker_weights()
+        sync_ms = (time.perf_counter() - t) * 1e3
+        keys = ("total_loss", "grad_norm", "kl")
+        first = _close_metrics(*pairs[0], keys, RLLIB_ROUND_RTOL)
+        last = _close_metrics(*pairs[-1], keys, RLLIB_ROUND_RTOL)
+        w_remote, w_local = algo.learner_group.get_weights(), local.get_weights()
+        w_equal = all(np.array_equal(a, b) for a, b in zip(tree_leaves(w_remote), tree_leaves(w_local)))
+        print(f"ppo round 1: {batch.count} env steps sampled in {sample_s * 1e3:.1f} ms "
+              f"({batch.count / sample_s:.0f} env steps/s), {len(pairs)} minibatch updates of {cfg.sgd_minibatch_size}: "
+              f"the learner actor {sum(remote_ms):.1f} ms ({np.median(remote_ms):.2f} ms median a minibatch, the call "
+              f"included; its first {remote_ms[0]:.1f} ms), in-process {sum(local_ms):.1f} ms ({np.median(local_ms):.2f} "
+              f"ms median; its first {local_ms[0]:.1f} ms); weight sync "
+              f"{sync_ms:.1f} ms; on {card}")
+        print(f"ppo round 1, the actor against the in-process learner (bar rtol {RLLIB_ROUND_RTOL}): first minibatch "
+              + ", ".join(f"{k} {pairs[0][0][k]:.6g} vs {pairs[0][1][k]:.6g} (rel {r:.1e})" for k, (r, _) in first.items())
+              + "; last minibatch " + ", ".join(f"{k} rel {r:.1e}" for k, (r, _) in last.items())
+              + f"; weights after the round bit-equal: {w_equal}")
+        if not all(ok for _, ok in list(first.values()) + list(last.values())):
+            failures.append(f"ppo: the learner actor's round parts from the in-process learner's: {first} {last}")
+        del local
+        # Then train on, through Algorithm.step, to the reference test's bar.
+        best, rewards, iter_s = float("-inf"), [], []
+        it = 1
+        while it < z["ppo_iters"]:
+            t = time.perf_counter()
+            r = algo.step()
+            iter_s.append(time.perf_counter() - t)
+            it += 1
+            rewards.append(r["episode_reward_mean"])
+            best = max(best, r["episode_reward_mean"])
+            if best >= z["ppo_bar"]:
+                break
+        action = algo.compute_single_action(np.zeros(4, np.float32))
+        print(f"ppo: episode_reward_mean by iteration {[round(x, 1) for x in rewards]} (iteration 1 is the round "
+              f"above); best {best:.1f} after {it} iterations (bar {z['ppo_bar']} within {z['ppo_iters']}); "
+              f"{np.median(iter_s):.3f} s median an iteration on {card}; compute_single_action(zeros) = {action}")
+        if not best >= z["ppo_bar"]:
+            failures.append(f"ppo: best episode_reward_mean {best} under {z['ppo_bar']} in {it} iterations")
+        if action not in (0, 1):
+            failures.append(f"ppo: compute_single_action gave {action!r}")
+        pids |= {w.pid for w in rt._global_node.raylet.workers.values() if w.pid}
+        algo.cleanup()
+        res["ppo"] = {"env_steps_per_s": batch.count / sample_s, "sample_ms": sample_s * 1e3,
+                      "learner_round_ms": sum(remote_ms), "minibatch_update_ms_actor": float(np.median(remote_ms)),
+                      "first_update_ms_actor": remote_ms[0], "first_update_ms_in_process": local_ms[0],
+                      "minibatch_update_ms_in_process": float(np.median(local_ms)), "weight_sync_ms": sync_ms,
+                      "iterations_to_bar": it if best >= z["ppo_bar"] else None, "best_reward": best,
+                      "iteration_s_median": float(np.median(iter_s)) if iter_s else None,
+                      "first_minibatch_rel": {k: r for k, (r, _) in first.items()}, "weights_equal_after_round": w_equal,
+                      "learner": learner_info}
+        marks["ppo_s"] = time.perf_counter() - t_ppo
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = sorted(p for p in pids if _alive(p))
+    print(f"ppo: worker pids {sorted(pids)}, {len(left)} left after shutdown()")
+    if left:
+        failures.append(f"ppo: worker processes {left} outlived shutdown()")
+
+    # ---- (b) the learner at the Atari module's shape, here, against the CPU ----
+    t = time.perf_counter()
+    spec = RLModuleSpec.from_spaces(Box(0.0, 1.0, (84, 84, 4)), Discrete(6))
+    n, mbs = z["atari_rows"], z["atari_minibatch"]
+    rng = np.random.default_rng(7)
+    atari = SampleBatch({OBS: rng.random((n, 84, 84, 4), dtype=np.float32), ACTIONS: rng.integers(0, 6, n),
+                         LOGPS: (np.log(1 / 6) + rng.normal(0, 0.3, n)).astype(np.float32),
+                         VF_PREDS: rng.normal(size=n).astype(np.float32),
+                         ADVANTAGES: rng.normal(size=n).astype(np.float32),
+                         VALUE_TARGETS: rng.normal(size=n).astype(np.float32)})
+    loss_cfg = {"clip_param": 0.2, "vf_clip_param": 10.0, "vf_loss_coeff": 0.5, "entropy_coeff": 0.0}
+    on_card = Learner(spec, ppo_loss, 3e-4, 0.5, 0, device=device)
+    on_cpu = Learner(spec, ppo_loss, 3e-4, 0.5, 0, device="cpu")
+    minibatches = [mb for epoch in range(z["atari_sgd_iters"]) for mb in atari.minibatches(mbs, seed=epoch)]
+    # As a user's process would have it: cuDNN's f32 convolutions in TF32 (its
+    # default) and TF32 matmuls; the learner's scoped flag must keep its
+    # update in full f32 all the same.
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    metric_keys = ("total_loss", "grad_norm", "policy_loss", "vf_loss")
+
+    def flat(grads):
+        return torch.cat([g.reshape(-1) for g in grads]).cpu()
+
+    try:
+        # The first minibatch's gradients: on the card through the learner (its
+        # scoped full f32), on the CPU, and the control on the card with TF32.
+        _, _, g_card = on_card.compute_grads(minibatches[0], loss_cfg)
+        _, _, g_cpu = on_cpu.compute_grads(minibatches[0], loss_cfg)
+        loss_t, metrics_t = ppo_loss(on_card.module, to_device(minibatches[0], on_card.device), spec, loss_cfg)
+        g_tf32 = torch.autograd.grad(loss_t, on_card.opt.params)
+        tf32 = _host_metrics(metrics_t, loss_t, global_norm(g_tf32))
+        grad_gap, tf32_grad_gap = A.mismatch(flat(g_card), flat(g_cpu)), A.mismatch(flat(g_tf32), flat(g_cpu))
+        del g_card, g_cpu, g_tf32, loss_t, metrics_t
+        got, want = on_card.update(minibatches[0], loss_cfg), on_cpu.update(minibatches[0], loss_cfg)
+        close = _close_metrics(got, want, metric_keys, RLLIB_ATARI_RTOL)
+        tf32_close = _close_metrics(tf32, want, metric_keys, RLLIB_ATARI_RTOL)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t_round = time.perf_counter()
+        for mb in minibatches[1:]:
+            on_card.update(mb, loss_cfg)
+        sync()
+        round_s = time.perf_counter() - t_round
+        kinds = None
+        if cuda:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                on_card.update(minibatches[0], loss_cfg)
+                sync()
+            us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)}
+            kinds = _kinds(us, 1, RLLIB_PROFILE_GROUPS) if sum(us.values()) > 0 else None
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    upd_ms = round_s / max(1, len(minibatches) - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0
+    print(f"atari: RLModuleSpec.from_spaces(Box(0, 1, (84, 84, 4)), Discrete(6)): convs {spec.conv_filters}, "
+          f"hiddens {spec.hiddens}; one PPO round on {n} synthetic rows ({atari[OBS].nbytes / 1e6:.0f} MB of frames), "
+          f"{len(minibatches)} minibatch updates of {mbs}, the learner on {device} with TF32 switched on around it")
+    print(f"atari first minibatch, {device} against the CPU (bar rtol {RLLIB_ATARI_RTOL}): "
+          + ", ".join(f"{k} {got[k]:.6g} vs {want[k]:.6g} (rel {r:.1e})" for k, (r, _) in close.items())
+          + f"; its {sum(p.numel() for p in on_cpu.opt.params)} gradients rel_l2 {grad_gap['rel_l2']:.1e} "
+          f"(bar {RLLIB_ATARI_GRAD_RTOL}), elem {grad_gap['elem']:.1e}")
+    print(f"atari control, TF32 allowed on {device} (not through the learner's flag) against the CPU: "
+          + ", ".join(f"{k} rel {r:.1e}" for k, (r, _) in tf32_close.items())
+          + f"; gradients rel_l2 {tf32_grad_gap['rel_l2']:.1e}, elem {tf32_grad_gap['elem']:.1e}")
+    print(f"atari on {card}: {upd_ms:.2f} ms a minibatch update (host clock, the host-to-device copy of its frames "
+          f"included), {mbs / upd_ms * 1e3:.0f} samples/s, peak memory {peak:.0f} MiB; device ms of one update by kind: "
+          + (", ".join(f"{k} {v:.3f}" for k, v in kinds.items()) if kinds else "not measured"))
+    if not all(ok for _, ok in close.values()):
+        failures.append(f"atari: the update on {device} parts from the CPU's: {close}")
+    if not grad_gap["rel_l2"] <= RLLIB_ATARI_GRAD_RTOL:
+        failures.append(f"atari: the gradients on {device} part from the CPU's: rel_l2 {grad_gap['rel_l2']:.2e}")
+    if cuda and not tf32_grad_gap["rel_l2"] > RLLIB_ATARI_GRAD_RTOL:
+        failures.append(f"atari: the TF32 control's gradients are within the bar (rel_l2 "
+                        f"{tf32_grad_gap['rel_l2']:.2e}): the check cannot tell TF32 from full f32")
+    res["atari"] = {"minibatch_update_ms": upd_ms, "samples_per_s": mbs / upd_ms * 1e3, "peak_mib": peak,
+                    "device_ms_by_kind": kinds, "first_minibatch_rel": {k: r for k, (r, _) in close.items()},
+                    "first_minibatch_grad": grad_gap,
+                    "tf32_control_rel": {k: r for k, (r, _) in tf32_close.items()},
+                    "tf32_control_grad": tf32_grad_gap, "updates": len(minibatches)}
+    del on_card, on_cpu, atari, minibatches
+    gc.collect()
+    marks["atari_s"] = time.perf_counter() - t
+
+    # ---- (c) the Decision Transformer on the flash kernels ----
+    t = time.perf_counter()
+    data = os.path.join(scratch, "dt_data")
+    rows = _dt_expert_data(data, z["dt_episodes"])
+    cfg = (DTConfig().environment("CartPole-v1")
+           .training(lr=1e-3, train_batch_size=64, context_length=20, updates_per_iter=z["dt_updates"],
+                     eval_episodes=3, max_ep_len=200)
+           .resources(device=device).debugging(seed=0).offline_data(data))
+    algo = cfg.build()
+    try:
+        # One forward and backward of the loss on the kernels and on their plain
+        # versions, on the first training batch (the sampler's state restored).
+        state = algo._rng.bit_generator.state
+        parts = algo._sample_windows(64, 20)
+        algo._rng.bit_generator.state = state
+        args = [torch.from_numpy(a).to(device) for a in parts]
+        leaves = tree_leaves(algo.params)
+        A.reset_launch_counts()
+        loss_k = dt_loss(algo.params, *args, cfg.n_heads)
+        grads_k = torch.autograd.grad(loss_k, leaves)
+        one_update = A.launch_counts()
+        with _plain_attention(A):
+            loss_p = dt_loss(algo.params, *args, cfg.n_heads)
+            grads_p = torch.autograd.grad(loss_p, leaves)
+        checks = [("loss", A.mismatch(loss_k.reshape(1), loss_p.reshape(1)))]
+        checks += [(f"grad {i} {tuple(g.shape)}", A.mismatch(g, w)) for i, (g, w) in enumerate(zip(grads_k, grads_p))]
+        worst = {k: max(m[k] for _, m in checks) for k in ("rel_l2", "elem", "max_abs")}
+        over = [f"{what}: {x}" for what, m in checks for x in A.over_tolerance(m, torch.float32)]
+        want_one = {k: cfg.n_layers for k in KERNELS} if cuda else {k: 0 for k in KERNELS}
+        print(f"dt: {rows} expert rows in {z['dt_episodes']} episodes; f32, batch 64, context 20 (T {3 * 20}), embed "
+              f"{cfg.embed_dim}, {cfg.n_layers} layers, {cfg.n_heads} heads (D {cfg.embed_dim // cfg.n_heads}); one "
+              f"forward and backward on the kernels against their plain versions: loss {loss_k.item():.6f} vs "
+              f"{loss_p.item():.6f}; worst over the loss and {len(grads_k)} gradients "
+              + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
+              + f" (bars {A.MATCH_TOL[torch.float32]}); launches {one_update} (expected {want_one})")
+        if over:
+            failures.append("dt: the kernels part from their plain versions: " + "; ".join(over))
+        if one_update != want_one:
+            failures.append(f"dt: one update launched {one_update}, not {want_one}")
+        del grads_k, grads_p, loss_k, loss_p
+        # Training to the reference test's bar; every launch counted.
+        A.reset_launch_counts()
+        best, rewards, n_iter = float("-inf"), [], 0
+        for _ in range(z["dt_iters"]):
+            r = algo.step()
+            n_iter += 1
+            rewards.append(r["episode_reward_mean"])
+            best = max(best, r["episode_reward_mean"])
+            if best >= z["dt_bar"]:
+                break
+        counts = A.launch_counts()
+        eval_steps = int(round(sum(algo._episode_reward_window)))  # CartPole pays 1 a step
+        updates = n_iter * z["dt_updates"]
+        want = ({"flash_fwd": cfg.n_layers * (updates + eval_steps), "flash_bwd_dkv": cfg.n_layers * updates,
+                 "flash_bwd_dq": cfg.n_layers * updates} if cuda else {k: 0 for k in KERNELS})
+        print(f"dt: episode_reward_mean by iteration {[round(x, 1) for x in rewards]}; best {best:.1f} after {n_iter} "
+              f"iterations (bar {z['dt_bar']} within {z['dt_iters']}); launches {counts} over {updates} updates and "
+              f"{eval_steps} evaluation forwards (expected {want})")
+        if not best >= z["dt_bar"]:
+            failures.append(f"dt: best episode_reward_mean {best} under {z['dt_bar']} in {n_iter} iterations")
+        if counts != want:
+            failures.append(f"dt: launched {counts}, expected {want}")
+        # ms per update, after the run (host clock to a synchronize).
+        sync()
+        t_upd = time.perf_counter()
+        for _ in range(z["dt_timed"]):
+            algo.train_step(*algo._sample_windows(64, 20))
+        sync()
+        dt_ms = (time.perf_counter() - t_upd) / z["dt_timed"] * 1e3
+        print(f"dt on {card}: {dt_ms:.2f} ms an update ({z['dt_timed']} updates, the window sampling on the host "
+              f"included)")
+        res["dt"] = {"update_ms": dt_ms, "iterations_to_bar": n_iter if best >= z["dt_bar"] else None,
+                     "best_reward": best, "launches": counts, "one_update_launches": one_update,
+                     "kernel_vs_plain_worst": worst}
+    finally:
+        algo.cleanup()
+        shutil.rmtree(scratch, ignore_errors=True)
+    marks["dt_s"] = time.perf_counter() - t
+
+    rows = []
+    if cuda:
+        # The three kernels at DT's shape, as training launches them (f32, the
+        # forward with LSE), beside their plain versions, SDPA in f32 and the
+        # bounds at the f32 (non-tensor-core) peak.
+        B, T, H, D = DT_SHAPE["B"], DT_SHAPE["T"], DT_SHAPE["H"], DT_SHAPE["D"]
+        q, k, v, dout = _inputs(torch, 300, torch.float32, B, T, T, H, D)
+        scale = D**-0.5
+        out, lse = A.flash_fwd_cuda(q, k, v, True, scale, 0, save_lse=True)
+        delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v, dout))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        with torch.no_grad():
+            fwd = _time_ms(torch, lambda: A.flash_fwd_cuda(q, k, v, True, scale, 0, save_lse=True), 100)
+            plain_fwd = _time_ms(torch, lambda: A._plain_flash_fwd(q, k, v, True, scale, 0), 50)
+            lib_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 100)
+            dkv = _time_ms(torch, lambda: A.flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, True, scale, 0), 100)
+            dq = _time_ms(torch, lambda: A.flash_bwd_dq_cuda(q, k, v, dout, lse, delta, True, scale, 0), 100)
+            plain_bwd = _time_ms(torch, lambda: A._plain_flash_bwd(q, k, v, out, lse, dout, True, scale, 0), 50)
+        lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), 100)
+        pairs = B * H * T * (T + 1) // 2
+        tensor, vec = B * T * H * D * 4, B * H * T * 4  # one f32 [B, T, H, D] tensor; one f32 [B, H, T] row vector
+        work = {  # row: (kernel, FLOPs, bytes, ms, plain ms, library ms, what plain and library compute)
+            "flash_fwd_dt": ("flash_fwd", 4 * D * pairs, 4 * tensor + vec, fwd, plain_fwd, lib_fwd,
+                             ("out+lse", "out")),  # QK^T, PV | q k v -> out, lse
+            "flash_bwd_dkv_dt": ("flash_bwd_dkv", 8 * D * pairs, 6 * tensor + 2 * vec, dkv, plain_bwd, lib_bwd,
+                                 ("dq+dk+dv", "dq+dk+dv")),  # S, dP, dV, dK | q k v dout lse delta -> dk dv
+            "flash_bwd_dq_dt": ("flash_bwd_dq", 6 * D * pairs, 5 * tensor + 2 * vec, dq, plain_bwd, lib_bwd,
+                                ("dq+dk+dv", "dq+dk+dv")),  # S, dP, dQ | ... -> dq
+        }
+        sources = {"flash_fwd": ("flash_fwd.cu", 57), "flash_bwd_dkv": ("flash_bwd.cu", 320),
+                   "flash_bwd_dq": ("flash_bwd.cu", 366)}
+        for name, (kernel, flops, nbytes, ms, plain_ms, lib_ms, (plain_covers, lib_covers)) in work.items():
+            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            row = {"name": name, "kernel": kernel, "route": "cuda", "design": DESIGNS[kernel],
+                   "source": f"ray_tpu_torch/ops/csrc/{sources[kernel][0]}",
+                   "replaces": f"ray_tpu/ops/attention.py:{sources[kernel][1]}",
+                   "shape": f"f32 B{B} T{T} H{H} D{D} causal" + (", LSE" if kernel == "flash_fwd" else ""),
+                   "launches": counts[kernel], "max_abs_err": None, "rel_l2_err": None, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms,
+                   "plain_covers": plain_covers, "library_covers": lib_covers}
+            rows.append(row)
+            print(f"{kernel} at DT's shape ({row['shape']}) on {card}: {ms:.4f} ms (bound {row['bound_ms']:.5f} ms "
+                  f"by {row['bound_by']}: {flops / 1e6:.1f} MFLOP at the f32 peak {PEAK_F32_FLOPS / 1e12:.0f} "
+                  f"TFLOP/s, {nbytes / 1e6:.2f} MB; {row['bound_ms'] / ms:.1%} of bound), plain {plain_ms:.4f} ms "
+                  f"({plain_covers}), library (SDPA, f32) {lib_ms:.4f} ms ({lib_covers})")
+        res["dt"].update(kernel_ms={r["kernel"]: r["ms"] for r in rows},
+                         kernel_plain_ms={r["kernel"]: r["plain_ms"] for r in rows},
+                         kernel_sdpa_ms={r["kernel"]: r["library_ms"] for r in rows},
+                         kernel_bound_ms={r["kernel"]: r["bound_ms"] for r in rows})
+        del q, k, v, dout, out, lse, delta, qt, kt, vt, dot, ot
+    marks["phase_s"] = time.perf_counter() - t0
+    res["sections_s"] = marks
+    print("rllib: " + json.dumps(res))
+    if failures:
+        raise AssertionError("rllib: " + "; ".join(failures))
+    return counts, rows
+
+
 def main() -> int:
     import torch
 
@@ -2546,6 +3026,15 @@ def main() -> int:
     for row in kernels:
         row["data_launches"] = data["predict"]["flash_fwd"] if row["name"] == "flash_fwd_vit" else \
             data["ingest"].get(row["name"], 0)
+    rllib_counts, dt_rows = rllib_phase(torch, smi)
+    # DT trains in f32: its launches are the f32 kernels', booked in the DT rows
+    # (the earlier rows time the bf16 kernels, other functions of the sources).
+    for row in kernels:
+        row["rllib_launches"] = 0
+    for row in dt_rows:
+        row.update(max_abs_err=max(e["max_abs"] for e in errs[row["name"]]),
+                   rel_l2_err=max(e["rel_l2"] for e in errs[row["name"]]), rllib_launches=rllib_counts[row["kernel"]])
+    kernels += dt_rows
     print(f"script wall time {time.perf_counter() - t0:.1f} s (from the device phase; imports before it)")
     print(smi)
     print(json.dumps({"kernels": kernels}))

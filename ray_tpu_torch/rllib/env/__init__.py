@@ -1,0 +1,8 @@
+from ray_tpu_torch.rllib.env.cartpole import CartPoleEnv, make  # noqa: F401
+from ray_tpu_torch.rllib.env.spaces import Box, Discrete  # noqa: F401
+from ray_tpu_torch.rllib.env.vector_env import (  # noqa: F401
+    EnvContext,
+    MultiAgentVectorEnv,
+    VectorEnv,
+    make_vector_env,
+)

@@ -32,7 +32,9 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.serve._private.http_proxy, ray_tpu_torch.serve.llm.kv_transfer, ray_tpu_torch.data, "
         "ray_tpu_torch.data.preprocessors, ray_tpu_torch.data.datasource.sql_datasource, "
         "ray_tpu_torch.data.datasource.webdataset_datasource, ray_tpu_torch.data.datasource.mongo_datasource, "
-        "ray_tpu_torch.train.predictor\n"
+        "ray_tpu_torch.train.predictor, ray_tpu_torch.tune, ray_tpu_torch.rllib, ray_tpu_torch.rllib.offline, "
+        "ray_tpu_torch.rllib.evaluation, ray_tpu_torch.rllib.connectors, ray_tpu_torch.rllib.models, "
+        "ray_tpu_torch.rllib.utils, ray_tpu_torch.rllib.env\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -74,7 +76,13 @@ def test_no_source_imports_jax_or_ray_tpu():
                    "data/datasource/sql_datasource.py", "data/datasource/webdataset_datasource.py",
                    "data/datasource/mongo_datasource.py", "data/read_api.py", "data/__init__.py",
                    "data/preprocessor.py", "data/preprocessors/__init__.py", "data/preprocessors/extended.py",
-                   "train/predictor.py"):
+                   "train/predictor.py", "tune/__init__.py", "tune/trainable.py", "rllib/__init__.py",
+                   "rllib/core/rl_module.py", "rllib/core/learner.py", "rllib/evaluation/rollout_worker.py",
+                   "rllib/algorithms/algorithm.py", "rllib/algorithms/ppo/ppo.py", "rllib/algorithms/impala/impala.py",
+                   "rllib/algorithms/appo/appo.py", "rllib/algorithms/dt/dt.py", "rllib/utils/vtrace.py",
+                   "rllib/policy/policy.py", "rllib/policy/sample_batch.py", "rllib/offline/__init__.py",
+                   "rllib/offline/estimators.py", "rllib/env/cartpole.py", "rllib/env/spaces.py",
+                   "rllib/env/vector_env.py", "rllib/connectors/connector.py", "rllib/models/__init__.py"):
         assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -136,6 +144,39 @@ def test_data_and_predictors_need_neither_pyarrow_nor_pandas():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "batch_format=\"pandas\" needs the 'pandas' package, which is not installed"
+
+
+def test_rllib_needs_no_gymnasium():
+    """The card's machine need not have gymnasium: no module of the port
+    imports it at module level, and with it blocked RLlib imports, builds its
+    own CartPole-v1 and its spaces, and names the package for any other env
+    id."""
+    for path in sorted((ROOT / "ray_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import) for a in n.names}
+        names |= {n.module.split(".")[0] for n in top if isinstance(n, ast.ImportFrom) and n.module and not n.level}
+        assert "gymnasium" not in names and "gym" not in names, path.relative_to(ROOT)
+    code = (
+        "import sys\n"
+        "sys.modules['gymnasium'] = None\n"
+        "import ray_tpu_torch.rllib\n"
+        "from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec\n"
+        "from ray_tpu_torch.rllib.env import make\n"
+        "env = make('CartPole-v1')\n"
+        "obs, _ = env.reset(seed=0)\n"
+        "spec = RLModuleSpec.from_spaces(env.observation_space, env.action_space)\n"
+        "assert obs.shape == (4,) and spec.action_dim == 2 and spec.discrete\n"
+        "try:\n"
+        "    make('Pendulum-v1')\n"
+        "except ImportError as e:\n"
+        "    print(e)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ("env 'Pendulum-v1' needs the 'gymnasium' package, which is not installed "
+                                  "(the port carries its own ['CartPole-v1'] only)")
 
 
 def test_worker_runtime_imports_no_torch():
@@ -235,6 +276,27 @@ def test_entry_points_raise_without_a_card():
         get_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prepare_batch({"x": [1.0]})
+
+    # RLlib: the learner, the learner group, an Algorithm (before it starts a
+    # rollout worker), the Decision Transformer and a Policy run on the card
+    # unless asked for the CPU.
+    from ray_tpu_torch.rllib import DTConfig, PPOConfig, Policy
+    from ray_tpu_torch.rllib.algorithms.ppo.ppo import ppo_loss
+    from ray_tpu_torch.rllib.core import Learner, LearnerGroup, RLModuleSpec
+    from ray_tpu_torch.rllib.env import Box, Discrete
+
+    spec = RLModuleSpec(obs_dim=4, action_dim=2, discrete=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Learner(spec, ppo_loss)
+    assert Learner(spec, ppo_loss, device="cpu").module.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LearnerGroup(spec, ppo_loss)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PPOConfig().environment("CartPole-v1").build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DTConfig().environment("CartPole-v1").offline_data("unused").build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Policy.from_spaces(Box(-1.0, 1.0, (4,)), Discrete(2))
 
     rt.init(num_cpus=1, object_store_memory=64 * 1024 * 1024)
     try:
