@@ -217,7 +217,30 @@ line:
    SDPA's backward in f32, each computing dq, dk and dv). An "rllib: {...}"
    line; the kernels line gains rows "flash_fwd_dt", "flash_bwd_dkv_dt" and
    "flash_bwd_dq_dt", which carry DT's launches as "rllib_launches" (the
-   f32 kernels; the other rows' "rllib_launches" are 0).
+   f32 kernels; the other rows' "rllib_launches" are 0). In (a)'s cluster,
+   init(num_cpus=12, num_gpus=1), before DT: (d) the Podracer weight sync:
+   IMPALA on CartPole with weight_sync="device_broadcast" from a learner
+   actor holding the card, 2 CPU samplers, 3 iterations, a resize to 4 and
+   back to 2 (two iterations after each); fails unless the sync is ready, the
+   holder's bcast_sends rise by one or more an iteration, every sampler's
+   bcast_recvs rise and its host_sync_fallbacks stay flat (after the first
+   post-resize iteration), every sampler's packed weights hash to the
+   learner's, and the roster lists exactly the live ranks; prints a sync's
+   ms on each transport, then the Atari module's packed weights (on the card)
+   broadcast to 4 host-pinned members of a weight group beside 4 host ships
+   of its params tree (ms, bytes, bit-equal on the CPU). (e) DQN at
+   DQNConfig's defaults for 2 iterations on the card (env steps/s, ms an
+   update), one double-Q prioritized update at the Atari module's shape
+   (batch 32) against the CPU with RLLIB_ATARI_RTOL and
+   RLLIB_ATARI_GRAD_RTOL and the TF32 control, then SimpleQ for an
+   iteration, its loss finite. (f) R2D2 at R2D2Config's defaults for an
+   iteration, its first update's loss and gradients against the CPU at the
+   same bars, ms an update. (g) Ape-X DQN (2 explorers, 2 shards), PG, A2C
+   and A3C (the learner or the apply step on the card) and DD-PPO (2 CPU
+   workers, digests equal), built together on threads (their worker
+   processes start at once), then an iteration each. Every flash launch in
+   this process over (d)-(g) is counted: the kernels line's rows carry the
+   count as "rllib_families_launches" (0: these paths compute no attention).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
@@ -367,6 +390,25 @@ RLLIB_ATARI_GRAD_RTOL = 1e-5
 # weights and minibatches: the same code on the same device.
 RLLIB_ROUND_RTOL = 1e-5
 DT_SHAPE = dict(B=64, T=60, H=2, D=32)  # DT's attention: batch 64, 3 x context 20, 2 heads of 32
+# The rllib phase's Podracer, value-based and policy-gradient sections, in the
+# PPO section's cluster. (d) IMPALA on CartPole with weight_sync=
+# "device_broadcast" from a learner actor holding the card: `podracer_iters`
+# iterations on 2 samplers, a resize to `podracer_grow` and back to 2 (two
+# iterations after each); then the Atari module's packed weights broadcast to
+# `atari_members` host-pinned members of a weight group of the same kind,
+# beside as many host ships of its params tree (`atari_reps` rounds each).
+# (e) DQN (DQNConfig's defaults, 2 iterations); one double-Q prioritized
+# update at the Atari module's shape (batch 32, DQNConfig's default) against
+# the CPU; SimpleQ at tests/test_rllib_new_families.py's config for one
+# iteration. (f) R2D2 at R2D2Config's defaults for one iteration, its first
+# update against the CPU. (g) Ape-X DQN (2 explorers, 2 shards, learning from
+# `apex_learning_starts` rows), PG and A2C (1 rollout worker each), A3C and
+# DD-PPO (2 CPU workers each), built together, one iteration each.
+RLLIB_FAMILIES = dict(podracer_iters=3, podracer_grow=4, atari_members=4, atari_reps=5, sync_reps=5,
+                      dqn_iters=2, atari_dqn_rows=256, atari_dqn_timed=20, apex_learning_starts=200)
+# The R2D2 update on the card against the CPU's (full f32 on both): the loss
+# within RLLIB_ATARI_RTOL and the gradients within RLLIB_ATARI_GRAD_RTOL, the
+# Atari check's bars.
 # Kinds of device work in a learner update (convolutions first: cuDNN's
 # kernel names also carry "xmma").
 RLLIB_PROFILE_GROUPS = (("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
@@ -2627,6 +2669,416 @@ def _close_metrics(got: dict, want: dict, keys, rtol) -> dict:
     return {k: (r, r <= rtol) for k, r in rel.items()}
 
 
+def _sink_class(rt):
+    @rt.remote(num_cpus=0.5)
+    class WeightSink:
+        """A weight-group member pinned to the host, as a rollout worker is:
+        takes a broadcast packed vector or a shipped params tree."""
+
+        def __init__(self):
+            from ray_tpu_torch._private.serialization import pin_to_host
+
+            pin_to_host()
+
+        def join(self, world, rank, group):
+            from ray_tpu_torch.util import collective as col
+
+            col.init_collective_group(world, rank, backend="cpu", group_name=group)
+            return True
+
+        def take(self, refs):
+            import hashlib
+
+            flat = rt.get(refs[0])
+            return {"device": str(flat.device), "nbytes": flat.numel() * flat.element_size(),
+                    "sha": hashlib.sha256(flat.numpy().tobytes()).hexdigest()}
+
+        def take_tree(self, tree):
+            from ray_tpu_torch.rllib.core.rl_module import tree_leaves
+
+            return sum(x.nbytes for x in tree_leaves(tree))
+
+        def coll(self):
+            from ray_tpu_torch.util.collective.p2p import COLL
+
+            return COLL.snapshot()
+
+    return WeightSink
+
+
+def _build_together(configs: dict) -> dict:
+    """``{name: config.build()}``, the builds on threads. A build waits for
+    its worker processes to start, which is what takes the time on the
+    card's machine (a node with a GPU starts workers by Popen, not the
+    zygote): on threads the waits overlap. If one build fails, the others
+    are cleaned up and its error raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(configs)) as pool:
+        futures = {name: pool.submit(config.build) for name, config in configs.items()}
+        built, error = {}, None
+        for name, fut in futures.items():
+            try:
+                built[name] = fut.result()
+            except Exception as e:  # noqa: BLE001 - the others are cleaned up, then it is raised
+                error = error or e
+    if error is not None:
+        for algo in built.values():
+            algo.cleanup()
+        raise error
+    return built
+
+
+def _finite(metrics: dict, key: str = "total_loss") -> bool:
+    return key in metrics and bool(np.isfinite(metrics[key]))
+
+
+def rllib_families(torch, rt, card, device, failures) -> dict:
+    """Sections (d)-(g) of the rllib phase, in its cluster: the Podracer
+    weight sync, the value-based and the policy-gradient families. Returns
+    their numbers; appends to ``failures``."""
+    from ray_tpu_torch.experimental import device_object as dobj
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib import (
+        A2CConfig, A3CConfig, ApexDQNConfig, DDPPOConfig, DQNConfig, IMPALAConfig, PGConfig, R2D2Config,
+        SimpleQConfig,
+    )
+    from ray_tpu_torch.rllib.algorithms.dqn.dqn import dqn_loss, td_errors, td_targets
+    from ray_tpu_torch.rllib.core.learner import Learner, pack_weights, to_device, weights_checksum
+    from ray_tpu_torch.rllib.core.rl_module import RLModule, RLModuleSpec, tree_leaves
+    from ray_tpu_torch.rllib.env import Box, Discrete
+    from ray_tpu_torch.rllib.policy.sample_batch import ACTIONS, DONES, NEXT_OBS, OBS, REWARDS, SampleBatch
+    from ray_tpu_torch.rllib.utils.replay_buffers import PrioritizedReplayBuffer
+    from ray_tpu_torch.util import collective as col
+
+    f = RLLIB_FAMILIES
+    cuda = device == "cuda"
+    res, marks = {}, {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # ---- (d) Podracer: IMPALA with the device broadcast from a learner actor on the card ----
+    t_sec = time.perf_counter()
+    # The Atari broadcast's members start while IMPALA builds.
+    sinks = [_sink_class(rt).remote() for _ in range(f["atari_members"])]
+    cfg = (IMPALAConfig().environment("CartPole-v1").rollouts(num_rollout_workers=2, rollout_fragment_length=50)
+           .training(lr=5e-4, train_batch_size=500, weight_sync="device_broadcast")
+           .resources(num_learners=1, num_gpus_per_learner=1, device=device).debugging(seed=0))
+    algo = cfg.build()
+    try:
+        info = algo.learner_group.device_info()[0]
+        group = algo._weight_group
+        want_dev = f"cuda:{torch.cuda.current_device()}" if cuda else "cpu"
+        if not algo._device_sync_ready or info["device"] != want_dev:
+            failures.append(f"podracer: sync ready {algo._device_sync_ready}, the holder on {info['device']}")
+
+        def check(label, n_iters, first_skip=False):
+            """``n_iters`` iterations; the holder's bcast_sends rise by one or
+            more an iteration, every sampler's bcast_recvs rise, fallbacks
+            stay flat (after the first iteration when ``first_skip``), the
+            samplers hold the learner's weights bit for bit."""
+            losses = []
+            if first_skip:
+                losses.append(algo.step()["total_loss"])
+                n_iters -= 1
+            h0, s0 = algo.learner_group.holder_coll_stats(), algo.workers.coll_stats()
+            for _ in range(n_iters):
+                losses.append(algo.step()["total_loss"])
+            h1, s1 = algo.learner_group.holder_coll_stats(), algo.workers.coll_stats()
+            sends = h1["bcast_sends"] - h0["bcast_sends"]
+            recvs = [b["bcast_recvs"] - a["bcast_recvs"] for a, b in zip(s0, s1)]
+            fallbacks = [b["host_sync_fallbacks"] - a["host_sync_fallbacks"] for a, b in zip(s0, s1)]
+            want = weights_checksum(algo.learner_group.get_weights())
+            equal = [x == want for x in algo.workers.weights_checksums()]
+            roster = algo.learner_group.weight_group_roster(group)
+            live = [0] + algo.workers._group_ranks
+            print(f"podracer {label}: {len(losses)} iterations, total_loss {[round(x, 4) for x in losses]}; holder "
+                  f"bcast_sends +{sends}, samplers' bcast_recvs +{recvs}, host_sync_fallbacks +{fallbacks} (over the "
+                  f"last {n_iters}); samplers bit-equal to the learner: {equal}; roster ranks {roster['ranks']} "
+                  f"(epoch {roster['epoch']}), live {live}")
+            if sends < n_iters or any(r < n_iters for r in recvs) or any(fallbacks):
+                failures.append(f"podracer {label}: sends +{sends}, recvs +{recvs}, fallbacks +{fallbacks}")
+            if not all(equal) or roster["ranks"] != live or not all(np.isfinite(losses)):
+                failures.append(f"podracer {label}: bit-equal {equal}, roster {roster['ranks']} vs {live}, "
+                                f"losses {losses}")
+            return {"iterations": len(losses), "bcast_sends": sends, "bcast_recvs": recvs,
+                    "host_sync_fallbacks": fallbacks, "bit_equal": all(equal), "roster": roster["ranks"]}
+
+        res["podracer"] = {"holder": info, "start": check("2 samplers", f["podracer_iters"])}
+        # One sync on each transport, on this algorithm (host clock; each ends
+        # when every sampler holds the weights).
+        dev_ms, host_ms = [], []
+        for _ in range(f["sync_reps"]):
+            t = time.perf_counter()
+            algo.sync_worker_weights()
+            dev_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            algo.workers.sync_weights(algo.learner_group.get_weights())
+            host_ms.append((time.perf_counter() - t) * 1e3)
+        nbytes = sum(x.nbytes for x in tree_leaves(algo.learner_group.get_weights()))
+        print(f"podracer sync on {card}: device broadcast {np.median(dev_ms):.2f} ms median (of {f['sync_reps']}), "
+              f"host path {np.median(host_ms):.2f} ms, {nbytes} bytes of weights to 2 samplers")
+        res["podracer"].update(sync_ms_device=float(np.median(dev_ms)), sync_ms_host=float(np.median(host_ms)),
+                               weight_bytes=nbytes)
+        t = time.perf_counter()
+        algo.resize_workers(f["podracer_grow"])
+        grow_s = time.perf_counter() - t
+        res["podracer"]["grown"] = check(f"grown to {f['podracer_grow']}", 2, first_skip=True)
+        algo.resize_workers(2)
+        res["podracer"]["shrunk"] = check("shrunk to 2", 2, first_skip=True)
+        res["podracer"]["grow_s"] = grow_s
+    finally:
+        algo.cleanup()
+
+    # The Atari module's packed weights through a weight group of host-pinned
+    # members, beside host ships of its params tree.
+    world = 1 + len(sinks)
+    rt.get([s.join.remote(world, i + 1, "atari_weights") for i, s in enumerate(sinks)], timeout=120)
+    col.init_collective_group(world, 0, backend="cpu", group_name="atari_weights")
+    try:
+        spec = RLModuleSpec.from_spaces(Box(0.0, 1.0, (84, 84, 4)), Discrete(6))
+        module = RLModule(spec, seed=0, device=device)
+        bcast_ms, ship_ms, sent = [], [], None
+        for _ in range(f["atari_reps"]):
+            sync()
+            t = time.perf_counter()
+            ref = rt.put(pack_weights(module), tensor_transport="collective")
+            sent = dobj.broadcast(ref, "atari_weights", timeout=120)
+            got = rt.get([s.take.remote([ref]) for s in sinks], timeout=120)
+            bcast_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            tree = module.get_params()
+            shipped = rt.get([s.take_tree.remote(tree) for s in sinks], timeout=120)
+            ship_ms.append((time.perf_counter() - t) * 1e3)
+            del ref
+        want = weights_checksum(module)
+        stats = rt.get([s.coll.remote() for s in sinks], timeout=60)
+        print(f"podracer, the Atari module ({sum(p.numel() for p in module.parameters())} params, "
+              f"{sent['bytes']} bytes on the wire) to {len(sinks)} members on {card}: pack + broadcast + resolve "
+              f"{np.median(bcast_ms):.2f} ms median (of {f['atari_reps']}), {len(sinks)} host ships of its tree "
+              f"{np.median(ship_ms):.2f} ms ({shipped[0]} bytes each); members on {[g['device'] for g in got]}, "
+              f"bit-equal {[g['sha'] == want for g in got]}, ok ranks {sent['ok_ranks']}, host_sync_fallbacks "
+              f"{[x['host_sync_fallbacks'] for x in stats]}")
+        if (any(g["sha"] != want or g["device"] != "cpu" for g in got) or sent["ok_ranks"] != [1, 2, 3, 4]
+                or any(x["host_sync_fallbacks"] for x in stats)):
+            failures.append(f"podracer atari: {got} {sent} {stats}")
+        res["podracer"]["atari"] = {"bytes": sent["bytes"], "broadcast_ms": float(np.median(bcast_ms)),
+                                    "host_ships_ms": float(np.median(ship_ms)), "members": len(sinks)}
+    finally:
+        col.destroy_collective_group("atari_weights")
+        for s in sinks:
+            rt.kill(s)
+    marks["podracer_s"] = time.perf_counter() - t_sec
+
+    # ---- (e) DQN: on CartPole, one Atari-shaped update against the CPU, SimpleQ ----
+    t_sec = time.perf_counter()
+    algo = DQNConfig().environment("CartPole-v1").resources(device=device).debugging(seed=0).build()
+    try:
+        upd_s = []
+        real = algo._train_once
+
+        def timed_update():
+            t = time.perf_counter()
+            m = real()  # reads its metrics back: the update has finished
+            upd_s.append(time.perf_counter() - t)
+            return m
+
+        algo._train_once = timed_update
+        iters = []
+        for _ in range(f["dqn_iters"]):
+            t = time.perf_counter()
+            m = algo.step()
+            iters.append((time.perf_counter() - t, m))
+        c = algo._algo_config
+        steps = c.rollout_steps_per_iter
+        # One env: an update at every train_intensity-th step from learning_starts on.
+        want = sum(1 for ts in range(1, f["dqn_iters"] * steps + 1)
+                   if ts >= c.learning_starts and ts % c.train_intensity == 0)
+        act_s = iters[0][0]  # iteration 1 acts (learning_starts = its last step)
+        print(f"dqn on {card}: {f['dqn_iters']} iterations of {steps} env steps; iteration 1 (one Q forward on the "
+              f"card a step, 1 update) {steps / act_s:.0f} env steps/s; {len(upd_s)} updates of batch "
+              f"{c.train_batch_size} in all, {np.median(upd_s) * 1e3:.2f} ms median an update (3 Q forwards, the "
+              f"update, the priorities read back); iteration 2 {iters[1][0]:.2f} s; total_loss "
+              f"{iters[1][1].get('total_loss')}")
+        if len(upd_s) != want or not _finite(iters[1][1]):
+            failures.append(f"dqn: {len(upd_s)} updates, metrics {iters[1][1]}")
+        res["dqn"] = {"env_steps_per_s": steps / act_s, "update_ms": float(np.median(upd_s)) * 1e3,
+                      "updates": len(upd_s), "iteration_s": [x for x, _ in iters]}
+    finally:
+        algo.cleanup()
+
+    # One double-Q prioritized update at the Atari module's shape, on the card
+    # and on the CPU from the same weights, TF32 switched on around it.
+    spec = RLModuleSpec.from_spaces(Box(0.0, 1.0, (84, 84, 4)), Discrete(6))
+    rng = np.random.default_rng(11)
+    n = f["atari_dqn_rows"]
+    buf = PrioritizedReplayBuffer(n, seed=0)
+    buf.add(SampleBatch({OBS: rng.random((n, 84, 84, 4), dtype=np.float32), ACTIONS: rng.integers(0, 6, n),
+                         REWARDS: rng.normal(size=n).astype(np.float32),
+                         DONES: (rng.random(n) < 0.1).astype(np.float32),
+                         NEXT_OBS: rng.random((n, 84, 84, 4), dtype=np.float32)}))
+    buf.update_priorities_at(np.arange(n), rng.random(n))
+    batch = buf.sample(32)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        def flat(grads, params):  # DQN's loss reaches no value head: zeros there, as the learner gives
+            return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1) for g, p in zip(grads, params)])
+
+        pair = []
+        for dev in (device, "cpu"):
+            learner = Learner(spec, dqn_loss, lr=5e-4, seed=0, device=dev)
+            target = RLModule(spec, seed=1, device=dev).requires_grad_(False)
+            td = td_targets(learner.module, target, batch, 0.99, True)
+            tb = {OBS: batch[OBS], ACTIONS: batch[ACTIONS], "td_target": td, "weights": batch["weights"]}
+            _, _, grads = learner.compute_grads(tb, {})
+            pair.append((learner, target, td, tb, flat(grads, learner.opt.params).cpu()))
+        (card_l, card_t, card_td, card_tb, g_card), (cpu_l, _, cpu_td, cpu_tb, g_cpu) = pair
+        # The control: the same gradients with TF32 allowed, not through the
+        # learner's flag.
+        loss_t, _ = dqn_loss(card_l.module, to_device(card_tb, card_l.device), spec, {})
+        g_tf32 = flat(torch.autograd.grad(loss_t, card_l.opt.params, allow_unused=True), card_l.opt.params).cpu()
+        td_gap = A.mismatch(card_td.cpu(), cpu_td)
+        grad_gap, tf32_gap = A.mismatch(g_card, g_cpu), A.mismatch(g_tf32, g_cpu)
+        got, want = card_l.update(card_tb, {}), cpu_l.update(cpu_tb, {})
+        close = _close_metrics(got, want, ("total_loss", "grad_norm", "td_error_abs", "q_mean"), RLLIB_ATARI_RTOL)
+        prio_gap = A.mismatch(torch.from_numpy(td_errors(card_l.module, batch, card_td)),
+                              torch.from_numpy(td_errors(cpu_l.module, batch, cpu_td)))
+        sync()
+        t = time.perf_counter()
+        for _ in range(f["atari_dqn_timed"]):
+            b = buf.sample(32)
+            td = td_targets(card_l.module, card_t, b, 0.99, True)
+            card_l.update({OBS: b[OBS], ACTIONS: b[ACTIONS], "td_target": td, "weights": b["weights"]}, {})
+            buf.update_priorities(td_errors(card_l.module, b, td))
+        upd_ms = (time.perf_counter() - t) / f["atari_dqn_timed"] * 1e3
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    print(f"dqn atari update (84x84x4, 6 actions, batch 32, double-Q, prioritized) on {device} against the CPU "
+          f"(bar rtol {RLLIB_ATARI_RTOL}): " + ", ".join(f"{k} {got[k]:.6g} vs {want[k]:.6g} (rel {r:.1e})"
+                                                         for k, (r, _) in close.items())
+          + f"; td targets rel_l2 {td_gap['rel_l2']:.1e}; gradients rel_l2 {grad_gap['rel_l2']:.1e} (bar "
+          f"{RLLIB_ATARI_GRAD_RTOL}); new priorities rel_l2 {prio_gap['rel_l2']:.1e}; the TF32 control's gradients "
+          f"rel_l2 {tf32_gap['rel_l2']:.1e}; {upd_ms:.2f} ms an update on {card} (replay sample, targets, update, "
+          f"priorities; {f['atari_dqn_timed']} updates)")
+    if not all(ok for _, ok in close.values()) or not grad_gap["rel_l2"] <= RLLIB_ATARI_GRAD_RTOL:
+        failures.append(f"dqn atari: the update on {device} parts from the CPU's: {close} {grad_gap}")
+    if not td_gap["rel_l2"] <= RLLIB_ATARI_GRAD_RTOL or not prio_gap["rel_l2"] <= RLLIB_ATARI_GRAD_RTOL:
+        failures.append(f"dqn atari: targets {td_gap} or priorities {prio_gap} part from the CPU's")
+    if cuda and not tf32_gap["rel_l2"] > RLLIB_ATARI_GRAD_RTOL:
+        failures.append(f"dqn atari: the TF32 control is within the bar ({tf32_gap['rel_l2']:.2e})")
+    res["dqn"]["atari"] = {"update_ms": upd_ms, "rel": {k: r for k, (r, _) in close.items()}, "grad": grad_gap,
+                           "td_targets": td_gap, "priorities": prio_gap, "tf32_control_grad": tf32_gap}
+    del pair, card_l, cpu_l, card_t, buf, batch
+    gc.collect()
+
+    t = time.perf_counter()
+    algo = (SimpleQConfig().environment("CartPole-v1").rollouts(num_envs_per_worker=4)
+            .training(lr=1e-3, train_batch_size=64, learning_starts=500, epsilon_timesteps=4000,
+                      rollout_steps_per_iter=500, model_hiddens=(64, 64))
+            .resources(device=device).debugging(seed=0).build())
+    try:
+        m = algo.step()
+    finally:
+        algo.cleanup()
+    secs = time.perf_counter() - t
+    print(f"simple_q on {card}: 1 iteration in {secs:.2f} s (build included), {algo._updates} updates, "
+          f"total_loss {m.get('total_loss')}, {algo._timesteps_total} env steps")
+    if not _finite(m) or not algo._updates:
+        failures.append(f"simple_q: {algo._updates} updates, metrics {m}")
+    res["simple_q"] = {"iteration_s": secs, "updates": algo._updates, "total_loss": m.get("total_loss")}
+    marks["dqn_s"] = time.perf_counter() - t_sec
+
+    # ---- (f) R2D2: one iteration on the card, its first update against the CPU ----
+    t_sec = time.perf_counter()
+    r2_cfg = R2D2Config().environment("CartPole-v1").debugging(seed=0)
+    algo = r2_cfg.resources(device=device).build()
+    ref_cpu = R2D2Config().environment("CartPole-v1").debugging(seed=0).resources(device="cpu").build()
+    try:
+        first, upd_s, first_grads = {}, [], []
+        real = algo.update
+
+        def checked_update(batch):
+            if not first:
+                ref_cpu.set_weights(algo.get_weights())
+                ref_cpu.target_params = {k: {n: v.detach().cpu() for n, v in layer.items()}
+                                         for k, layer in algo.target_params.items()}
+                loss_c, aux_c, grads_c = algo.loss_and_grads(batch)
+                loss_h, aux_h, grads_h = ref_cpu.loss_and_grads(batch)
+                first.update(loss=(loss_c.item(), loss_h.item()), td_abs=(aux_c["td_abs"].item(),
+                                                                          aux_h["td_abs"].item()))
+                first_grads.append(A.mismatch(torch.cat([g.reshape(-1) for g in grads_c]).cpu(),
+                                              torch.cat([g.reshape(-1) for g in grads_h])))
+            t = time.perf_counter()
+            m = real(batch)
+            upd_s.append(time.perf_counter() - t)
+            return m
+
+        algo.update = checked_update
+        t = time.perf_counter()
+        m = algo.step()
+        it_s = time.perf_counter() - t
+    finally:
+        algo.cleanup()
+        ref_cpu.cleanup()
+    rel = {k: abs(a - b) / max(abs(b), 1e-12) for k, (a, b) in first.items()}
+    print(f"r2d2 on {card} (hidden {r2_cfg.hidden_size}, burn-in {r2_cfg.burn_in}, sequence {r2_cfg.seq_len}, "
+          f"{r2_cfg.train_batch_size} sequences an update): 1 iteration in {it_s:.2f} s, {len(upd_s)} updates, "
+          f"{np.median(upd_s) * 1e3:.2f} ms median an update; first update against the CPU: loss "
+          f"{first['loss'][0]:.6g} vs {first['loss'][1]:.6g} (rel {rel['loss']:.1e}), td_abs rel {rel['td_abs']:.1e} "
+          f"(bar {RLLIB_ATARI_RTOL}), gradients rel_l2 {first_grads[0]['rel_l2']:.1e} (bar {RLLIB_ATARI_GRAD_RTOL}); "
+          f"total_loss {m.get('total_loss')}")
+    if (not upd_s or not _finite(m) or max(rel.values()) > RLLIB_ATARI_RTOL
+            or not first_grads[0]["rel_l2"] <= RLLIB_ATARI_GRAD_RTOL):
+        failures.append(f"r2d2: {len(upd_s)} updates, metrics {m}, first update {first}")
+    res["r2d2"] = {"iteration_s": it_s, "updates": len(upd_s), "update_ms": float(np.median(upd_s)) * 1e3,
+                   "first_update_rel": rel, "first_update_grad": first_grads[0]}
+    marks["r2d2_s"] = time.perf_counter() - t_sec
+
+    # ---- (g) Ape-X DQN (2 explorers, 2 shards); PG, A2C and A3C (the learner or the apply
+    # step on the card); DD-PPO (2 CPU workers): built together, then an iteration each ----
+    t_sec = time.perf_counter()
+    configs = {"apex_dqn": ApexDQNConfig().training(num_replay_shards=2, learning_starts=f["apex_learning_starts"]),
+               "pg": PGConfig().rollouts(num_rollout_workers=1), "a2c": A2CConfig().rollouts(num_rollout_workers=1),
+               "a3c": A3CConfig().rollouts(num_rollout_workers=2), "ddppo": DDPPOConfig().rollouts(num_rollout_workers=2)}
+    algos = _build_together({k: c.environment("CartPole-v1").resources(device=device).debugging(seed=0)
+                             for k, c in configs.items()})
+    build_s = time.perf_counter() - t_sec
+    print(f"apex_dqn, pg, a2c, a3c and ddppo built together in {build_s:.2f} s (8 worker actors, 2 shards)")
+    for label, algo in algos.items():
+        try:
+            t = time.perf_counter()
+            m = algo.step()
+            secs = time.perf_counter() - t
+            extra = ""
+            ok = _finite(m)
+            if label == "apex_dqn":
+                extra = f"; {algo._updates} updates, the learner on {algo.learner.device}"
+                ok = ok and algo._updates > 0 and algo.learner.device.type == torch.device(device).type
+            elif label == "ddppo":
+                digests = rt.get([w.weights_digest.remote() for w in algo.workers], timeout=60)
+                sums = [weights_checksum(w) for w in rt.get([w.get_weights.remote() for w in algo.workers])]
+                extra = f"; workers' digests {digests}, weights bit-equal {len(set(sums)) == 1}"
+                ok = ok and len(set(digests)) == 1 and len(set(sums)) == 1
+            else:
+                on = algo.learner.device if label == "a3c" else algo.learner_group.local_learner.device
+                extra = f"; the {'apply step' if label == 'a3c' else 'learner'} on {on}"
+                ok = ok and on.type == torch.device(device).type
+        finally:
+            algo.cleanup()
+        print(f"{label} on {card}: 1 iteration in {secs:.2f} s, {m.get('timesteps_total')} env steps, total_loss "
+              f"{m.get('total_loss')}{extra}")
+        if not ok:
+            failures.append(f"{label}: metrics {m}{extra}")
+        res[label] = {"iteration_s": secs, "total_loss": m.get("total_loss")}
+    res["built_together_s"] = build_s
+    marks["pg_s"] = time.perf_counter() - t_sec
+    res["sections_s"] = marks
+    return res
+
+
 def rllib_phase(torch, card, device="cuda", sizes=None):
     """RLlib on the card (phase 15): (a) PPO on CartPole-v1, CPU rollout
     workers and one learner actor holding the card; (b) the learner at the
@@ -2660,7 +3112,9 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
             torch.cuda.synchronize()
 
     # ---- (a) PPO on CartPole-v1: CPU rollout workers, a learner actor on the card ----
-    rt.init(num_cpus=4, num_gpus=1, object_store_memory=1 << 30)
+    # 12 CPUs of resource on the card's 8 cores: section (g) holds 8 worker
+    # actors and 2 shards at once (mostly idle between their steps).
+    rt.init(num_cpus=12, num_gpus=1, object_store_memory=1 << 30)
     pids = set()
     try:
         marks["init_s"] = time.perf_counter() - t0
@@ -2756,6 +3210,16 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
                       "first_minibatch_rel": {k: r for k, (r, _) in first.items()}, "weights_equal_after_round": w_equal,
                       "learner": learner_info}
         marks["ppo_s"] = time.perf_counter() - t_ppo
+        # (d)-(g) in the same cluster; they launch none of the flash kernels.
+        t = time.perf_counter()
+        A.reset_launch_counts()
+        res["families"] = rllib_families(torch, rt, card, device, failures)
+        family_counts = A.launch_counts()
+        print(f"rllib families: flash kernel launches in this process over sections (d)-(g): {family_counts}")
+        if any(family_counts.values()):
+            failures.append(f"rllib families: the value and policy-gradient paths launched {family_counts}")
+        pids |= {w.pid for w in rt._global_node.raylet.workers.values() if w.pid}
+        marks["families_s"] = time.perf_counter() - t
     finally:
         rt.shutdown()
     deadline = time.monotonic() + 30
@@ -2991,7 +3455,7 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
     print("rllib: " + json.dumps(res))
     if failures:
         raise AssertionError("rllib: " + "; ".join(failures))
-    return counts, rows
+    return counts, rows, family_counts
 
 
 def main() -> int:
@@ -3026,11 +3490,13 @@ def main() -> int:
     for row in kernels:
         row["data_launches"] = data["predict"]["flash_fwd"] if row["name"] == "flash_fwd_vit" else \
             data["ingest"].get(row["name"], 0)
-    rllib_counts, dt_rows = rllib_phase(torch, smi)
+    rllib_counts, dt_rows, family_counts = rllib_phase(torch, smi)
     # DT trains in f32: its launches are the f32 kernels', booked in the DT rows
     # (the earlier rows time the bf16 kernels, other functions of the sources).
     for row in kernels:
         row["rllib_launches"] = 0
+    for row in kernels + dt_rows:
+        row["rllib_families_launches"] = family_counts[row.get("kernel", row["name"])]
     for row in dt_rows:
         row.update(max_abs_err=max(e["max_abs"] for e in errs[row["name"]]),
                    rel_l2_err=max(e["rel_l2"] for e in errs[row["name"]]), rllib_launches=rllib_counts[row["kernel"]])

@@ -469,6 +469,13 @@ class GcsServer:
             # even if the incumbent's state changes before the report lands.
             info.setdefault("rejected_workers", []).append(req.get("worker_id"))
             return {"ok": False, "duplicate": True}
+        if info.get("state") == DEAD:
+            # Killed while its creation was in flight: the worker that has
+            # just come up must exit, not revive the actor. Revived, it kept
+            # its resources with no handle left to kill it (the reference's
+            # GCS has the same fault: ROADMAP C15).
+            info.setdefault("rejected_workers", []).append(req.get("worker_id"))
+            return {"ok": False, "killed": True}
         self._mutations += 1
         info.update(
             state=ALIVE,

@@ -11,7 +11,8 @@ Tensors take the place of the JAX package's ``jax.Array`` reducers: a
 ``torch.Tensor`` leaves the process as a numpy view of its host memory (a
 CUDA tensor through one device-to-host copy, with its device index), and
 comes back as a fresh tensor of the same dtype, bit for bit, on the CPU or
-on ``cuda:<index>``. A sharded ``DTensor`` raises: one process of a torch
+on ``cuda:<index>`` (on the CPU in a process pinned there by
+:func:`pin_to_host`). A sharded ``DTensor`` raises: one process of a torch
 gang sees only its own shards, and the store does not gather them (ROADMAP
 A9f).
 
@@ -140,15 +141,30 @@ def tensor_from_numpy(array, dtype_name: str):
     return torch.from_numpy(array.view(f"i{array.itemsize}").copy()).view(getattr(torch, dtype_name))
 
 
+class _HostPin:
+    """Whether this process is pinned to the CPU (see :func:`pin_to_host`)."""
+
+    pinned = False
+
+
+def pin_to_host() -> None:
+    """Pin this process to the CPU: from here on a CUDA tensor it receives
+    is rebuilt as a CPU tensor, and receiving one makes no CUDA context. For
+    processes that hold no card on a machine that has one (rollout workers:
+    the JAX package pins them to its CPU platform the same way)."""
+    _HostPin.pinned = True
+
+
 def _rebuild_tensor(host, dtype_name: str, device_index, requires_grad: bool):
     """Reconstructor of a reduced tensor. ``host`` is the numpy array as it
     arrived (a read-only view of the object's buffer); it is copied into a
-    fresh, writable tensor. A CUDA tensor goes back onto ``cuda:<index>``;
-    where this process has no such device, this raises."""
+    fresh, writable tensor. A CUDA tensor goes back onto ``cuda:<index>``
+    unless this process is pinned to the CPU; where this process has no such
+    device, this raises."""
     import torch
 
     t = tensor_from_numpy(host, dtype_name)
-    if device_index is not None:
+    if device_index is not None and not _HostPin.pinned:
         if not torch.cuda.is_available() or device_index >= torch.cuda.device_count():
             raise RuntimeError(
                 f"a CUDA tensor from cuda:{device_index} cannot be restored here: this process "

@@ -286,6 +286,10 @@ class WorkerExecutor:
                 # recovery raced an in-flight creation); the incumbent wins.
                 logger.warning("duplicate actor %s; exiting", spec.actor_id[:8])
                 os._exit(0)
+            if resp.get("killed"):
+                # kill() reached the GCS before this creation finished.
+                logger.warning("actor %s was killed during its creation; exiting", spec.actor_id[:8])
+                os._exit(0)
             await self.raylet.acall("actor_ready", {"worker_id": self.cw.worker_id})
         else:
             logger.error("actor %s __init__ failed", spec.actor_id[:8])

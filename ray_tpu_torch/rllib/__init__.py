@@ -7,17 +7,27 @@ allreduce over the collective plane) runs SGD on the card; Algorithm extends
 the Tune Trainable. The Decision Transformer's attention runs the port's
 flash-attention kernels.
 
-Ported so far (ROADMAP A13a-c, f and part of e): PPO, IMPALA, APPO and DT
-with the layers under them. The JAX package's other algorithms, its
-multi-agent, external-env and policy-server modules, and the Podracer device
-weight sync (A13d) are not exported here until they are ported.
+Ported so far (ROADMAP A13a-d, f and part of e): PPO, IMPALA, APPO, DT, PG,
+A2C, A3C, DD-PPO, DQN, SimpleQ, Ape-X DQN and R2D2 with the layers under
+them, and the Podracer weight sync (``weight_sync="device_broadcast"``,
+``grad_sync="device_allreduce"``). The JAX package's other algorithms and its
+multi-agent, external-env and policy-server modules are not exported here
+until they are ported.
 """
 
+from ray_tpu_torch.rllib.algorithms.a2c import A2C, A2CConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.a3c import A3C, A3CConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.apex_dqn import ApexDQN, ApexDQNConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.ddppo import DDPPO, DDPPOConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.dt import DT, DTConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.pg import PG, PGConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.r2d2 import R2D2, R2D2Config  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.simple_q import SimpleQ, SimpleQConfig  # noqa: F401
 from ray_tpu_torch.rllib.callbacks import DefaultCallbacks  # noqa: F401
 from ray_tpu_torch.rllib.core.learner import Learner, LearnerGroup  # noqa: F401
 from ray_tpu_torch.rllib.core.rl_module import RLModule, RLModuleSpec  # noqa: F401

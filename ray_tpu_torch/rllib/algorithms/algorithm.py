@@ -6,22 +6,30 @@ algorithm_config.py (fluent AlgorithmConfig builder).
 
 The learner runs on ``AlgorithmConfig.resources(device=...)``, the card by
 default (``device='cpu'`` asks for the CPU); rollout workers run on the CPU.
-Weights reach the workers through the object store (host sync); the
-Podracer device broadcast (``weight_sync="device_broadcast"``) is ROADMAP
-A13d.
+Weights reach the workers through the object store (host sync), or, with
+``weight_sync="device_broadcast"`` (the Podracer topology), as one packed
+vector that the learner holds on its device and broadcasts over the
+learner<->sampler weight group (the host plane, never NCCL: the samplers hold
+no card).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Optional, Type
 
 import numpy as np
 
 from ray_tpu_torch.air.checkpoint import Checkpoint
-from ray_tpu_torch.rllib.core.learner import PODRACER, LearnerGroup
+from ray_tpu_torch.rllib.core.learner import LearnerGroup
 from ray_tpu_torch.rllib.evaluation.rollout_worker import WorkerSet
 from ray_tpu_torch.tune.trainable import Trainable
+
+# Weight-group names are per-process singletons: each Algorithm suffixes the
+# configured name with its own number, so two live Algorithms in one driver
+# never share a group.
+_WEIGHT_GROUP_SEQ = itertools.count(1)
 
 
 class AlgorithmConfig:
@@ -47,15 +55,15 @@ class AlgorithmConfig:
         self.grad_clip: Optional[float] = None
         # Weight-sync transport (Podracer topology, arXiv:2104.06272):
         # "host" ships the params tree through the object store per worker;
-        # "device_broadcast" (one device-resident vector fanned to the
-        # sampler fleet by device_object.broadcast) is ROADMAP A13d.
+        # "device_broadcast" fans one device-resident vector to the sampler
+        # fleet with device_object.broadcast over the weight group, whose
+        # backend is the host plane ("cpu").
         self.weight_sync = "host"
         self.weight_sync_group = "rllib_weights"
-        self.weight_sync_backend = "gloo"
+        self.weight_sync_backend = "cpu"
         # Gradient-sync transport for multi-learner data parallelism:
         # "host" allreduces each gradient through the collective group;
-        # "device_allreduce" (one packed vector through the relay tree, the
-        # Podracer plane) is ROADMAP A13d.
+        # "device_allreduce" sends one packed vector through the relay tree.
         self.grad_sync = "host"
         # Podracer learner mesh: on one device the same update; over more
         # than one rank, ROADMAP A9f.
@@ -138,6 +146,9 @@ class AlgorithmConfig:
             assert weight_sync in ("host", "device_broadcast"), weight_sync
             self.weight_sync = weight_sync
         if weight_sync_backend is not None:
+            if weight_sync_backend == "nccl":
+                raise ValueError("the weight group spans the CPU samplers: its backend is the host plane "
+                                 "('cpu'), never NCCL")
             self.weight_sync_backend = weight_sync_backend
         if grad_sync is not None:
             assert grad_sync in ("host", "device_allreduce"), grad_sync
@@ -322,20 +333,10 @@ class Algorithm(Trainable):
         if existing_lg is not None and hasattr(existing_lg, "stop"):
             existing_lg.stop()
         cfg = self._algo_config
-        if getattr(cfg, "weight_sync", "host") == "device_broadcast":
-            raise NotImplementedError(PODRACER)
         from ray_tpu_torch.rllib.core.rl_module import _device
-        from ray_tpu_torch.rllib.env.cartpole import make
 
         _device(cfg.device)  # no card and no device="cpu": raise before any worker starts
-
-        probe = make(cfg.env) if isinstance(cfg.env, str) else cfg.env(dict(cfg.env_config))
-        from ray_tpu_torch.rllib.models import ModelCatalog
-
-        self.module_spec = ModelCatalog.get_model_spec(
-            probe.observation_space, probe.action_space, cfg.model_config()
-        )
-        probe.close()
+        self.module_spec = self._spec_from_env(cfg)
         self.workers = WorkerSet(
             cfg.env,
             self.module_spec,
@@ -353,18 +354,72 @@ class Algorithm(Trainable):
         )
         self.learner_group = self._build_learner_group(cfg)
         self._act_module = None
+        self._device_sync_ready = False
+        if getattr(cfg, "weight_sync", "host") == "device_broadcast":
+            try:
+                self._setup_device_weight_sync(cfg)
+            except Exception:
+                self.cleanup()  # the actors' reservations go before the error does
+                raise
         self.sync_worker_weights()
         self._episode_reward_window: list = []
         self._timesteps_total = 0
 
+    @staticmethod
+    def _spec_from_env(cfg: AlgorithmConfig):
+        """The RLModuleSpec for ``cfg.env``'s spaces and ``cfg``'s model
+        config, from a probe env made and closed here."""
+        from ray_tpu_torch.rllib.env.cartpole import make
+        from ray_tpu_torch.rllib.models import ModelCatalog
+
+        probe = make(cfg.env) if isinstance(cfg.env, str) else cfg.env(dict(cfg.env_config))
+        try:
+            return ModelCatalog.get_model_spec(probe.observation_space, probe.action_space, cfg.model_config())
+        finally:
+            probe.close()
+
+    def _setup_device_weight_sync(self, cfg) -> None:
+        """Form the learner<->sampler weight group (Podracer topology): the
+        learner is rank 0 (the holder the broadcast fans out from), the
+        samplers ranks 1..N. A failure raises: the config asked for the
+        device path, and no sync quietly takes the host path instead."""
+        from ray_tpu_torch.util import collective
+
+        group = self._weight_group = f"{cfg.weight_sync_group}-{next(_WEIGHT_GROUP_SEQ)}"
+        backend = getattr(cfg, "weight_sync_backend", "cpu")
+        world = 1 + self.workers.num_workers
+        collective.destroy_collective_group(group)  # a re-setup of this instance may hold the name
+        self.learner_group.init_weight_collective(world, 0, backend, group)
+        self.workers.init_weight_group(group, backend=backend, world_size=world, base_rank=1)
+        self._device_sync_ready = True
+
     def sync_worker_weights(self):
-        """One weight sync: the learner's weights (a numpy tree) to every
-        rollout worker through the object store."""
+        """One weight sync, on the transport the config picked. Host: the
+        learner's weights (a numpy tree) to every worker through the object
+        store. Device: ONE group broadcast of the packed vector the learner
+        holds (serialised once), then every worker resolves it from its inbox.
+        ``strict=False``: a dead sampler is the sync loop's business (it
+        respawns the worker, which re-registers at its old rank); a member
+        that missed the broadcast pulls, and its ``host_sync_fallbacks``
+        count says so."""
+        if getattr(self, "_device_sync_ready", False):
+            from ray_tpu_torch.experimental import device_object
+
+            # Self-heal the roster first: a live sampler a prior broadcast
+            # evicted on a stall re-joins, so this broadcast covers it.
+            self.workers.ensure_registered()
+            ref = self.learner_group.pack_weight_ref()
+            device_object.broadcast(ref, self._weight_group, strict=False)
+            self.workers.sync_packed_weights(ref)
+            return
         self.workers.sync_weights(self.learner_group.get_weights())
 
     def resize_workers(self, num_workers: int) -> int:
         """Grow or shrink the sampler fleet mid-training, then sync weights
-        at once so grown workers can sample. Returns the new worker count."""
+        at once so grown workers can sample. On the device path, growing
+        joins the new samplers at fresh tail ranks and shrinking evicts the
+        tail from the roster: the weight group is never re-formed. Returns
+        the new worker count."""
         n = self.workers.resize(num_workers)
         self.sync_worker_weights()
         if getattr(self._algo_config, "observation_filter", None):
@@ -597,6 +652,14 @@ class Algorithm(Trainable):
         self.workers.sync_weights(data["weights"])
 
     def cleanup(self) -> None:
+        if getattr(self, "_weight_group", None):
+            # Release the weight group's name in this process (the samplers
+            # and a learner actor leave with their actors below).
+            from ray_tpu_torch.util import collective
+
+            collective.destroy_collective_group(self._weight_group)
+            self._weight_group = None
+        self._device_sync_ready = False
         workers = getattr(self, "workers", None)
         if workers is not None:
             workers.stop()

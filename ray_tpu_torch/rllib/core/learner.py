@@ -13,15 +13,25 @@ would form an NCCL group, which needs more than one card: ROADMAP 5b).
 
 :func:`pack_weights` / :func:`unpack_weights` flatten a params tree into one
 f32 vector in ``jax.tree_util``'s leaf order (dict keys sorted, lists in
-order), so a packed vector equals the reference's bit for bit. The Podracer
-device weight sync that ships that vector as a device object
-(``weight_sync="device_broadcast"``, ``grad_sync="device_allreduce"``) is not
-ported yet: ROADMAP A13d.
+order), so a packed vector equals the reference's bit for bit.
+
+Podracer weight sync (arXiv:2104.06272, wired by Algorithm when
+``weight_sync="device_broadcast"``): the learner packs its parameters into ONE
+flat vector on its device, keeps it resident as a device object (the learner
+is the holder), and ``device_object.broadcast`` fans it to the sampler fleet
+with one group operation over the host plane: the vector leaves the card once,
+at the broadcast's one serialisation. Samplers rebuild their CPU module against
+their own template (:func:`unpack_weights`), so only leaf values cross the
+wire. Several learners' gradients travel as one packed vector through
+their group's allreduce (:func:`allreduce_mean`): ``grad_sync=
+"device_allreduce"`` puts the group on the same plane (the relay-tree
+allreduce) and reports its tree sends.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import logging
 import os
 from typing import Callable, Optional
@@ -40,11 +50,6 @@ from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch
 
 logger = logging.getLogger(__name__)
 
-PODRACER = (
-    "the Podracer device weight sync (device-object broadcast of packed weights, "
-    "grad_sync='device_allreduce') is not ported yet: ROADMAP A13d"
-)
-
 
 def pack_weights(params) -> torch.Tensor:
     """Flatten a params tree (nested dict/list of arrays or tensors, or an
@@ -52,7 +57,7 @@ def pack_weights(params) -> torch.Tensor:
     order."""
     if isinstance(params, RLModule):
         params = params.param_tree()
-    leaves = [torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x.detach()
+    leaves = [x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.require(x, requirements="W"))
               for x in tree_leaves(params)]
     if not leaves:
         return torch.zeros((0,), dtype=torch.float32)
@@ -80,6 +85,12 @@ def unpack_weights(flat, template):
             out.append(piece.cpu().numpy().astype(np.asarray(leaf).dtype))
         offset += n
     return tree_unflatten_like(template, out)
+
+
+def weights_checksum(params) -> str:
+    """SHA-256 of :func:`pack_weights`' bytes: two processes holding the same
+    weights bit for bit give the same string."""
+    return hashlib.sha256(pack_weights(params).cpu().numpy().tobytes()).hexdigest()
 
 
 class OptaxChain:
@@ -177,11 +188,13 @@ def full_f32(device: torch.device):
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    """A host batch (numpy columns) -> tensors on ``device``; ints stay ints
-    (the loss casts), bools become the loss's float."""
+    """A host batch (numpy columns; a column already a tensor is moved as it
+    is) -> tensors on ``device``; ints stay ints (the loss casts), f64 becomes
+    f32."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.require(v, requirements="W"))  # a store object is read-only: copy it then
+        # A store object is read-only: copy it then.
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.require(v, requirements="W"))
         if t.dtype == torch.float64:
             t = t.to(torch.float32)
         out[k] = t.to(device, non_blocking=True)
@@ -210,11 +223,14 @@ class Learner:
         self.opt = OptaxChain(list(self.module.parameters()), lr, grad_clip, optimizer)
 
     def compute_grads(self, batch: SampleBatch, loss_cfg: dict):
-        """(loss, metrics, grads) of one batch, the grads in parameter order."""
+        """(loss, metrics, grads) of one batch, the grads in parameter order.
+        A parameter the loss does not reach (DQN's value head) gets a zero
+        gradient, as ``jax.grad`` gives it."""
         tb = to_device(batch, self.device)
         with full_f32(self.device):
             loss, metrics = self.loss_fn(self.module, tb, self.spec, loss_cfg)
-            grads = torch.autograd.grad(loss, self.opt.params)
+            grads = torch.autograd.grad(loss, self.opt.params, allow_unused=True)
+        grads = tuple(torch.zeros_like(p) if g is None else g for p, g in zip(self.opt.params, grads))
         return loss, metrics, grads
 
     def update(self, batch: SampleBatch, loss_cfg: dict) -> dict:
@@ -223,6 +239,17 @@ class Learner:
         with full_f32(self.device):
             self.opt.step(grads, g_norm)
         return _host_metrics(metrics, loss, g_norm)
+
+    def apply_gradients(self, grads) -> None:
+        """One optimizer step from a gradient tree in the params' layout (the
+        reference's tree, numpy or tensors: an A3C worker's gradient)."""
+        slot = {id(p): i for i, p in enumerate(self.opt.params)}
+        ordered = [None] * len(slot)
+        for p, g in zip(tree_leaves(self.module.param_tree()), tree_leaves(grads)):
+            g = g if isinstance(g, torch.Tensor) else torch.from_numpy(np.require(g, requirements="W"))
+            ordered[slot[id(p)]] = g.to(self.device)
+        with full_f32(self.device):
+            self.opt.step(ordered, global_norm(ordered))
 
     def get_weights(self) -> dict:
         return self.module.get_params()
@@ -246,17 +273,28 @@ def _host_metrics(metrics: dict, loss, g_norm=None) -> dict:
     return dict(zip(names, host))
 
 
+def allreduce_mean(grads, group_name: str, world_size: int, tag: str) -> list:
+    """The mean of ``grads`` over the group's ranks: every gradient rides as
+    ONE packed vector through the group's allreduce (the relay tree on the
+    host plane, one allreduce on a gloo or NCCL group)."""
+    from ray_tpu_torch.util import collective
+
+    grads = list(grads)
+    packed = pack_weights(grads) / world_size
+    return unpack_weights(collective.get_group(group_name).allreduce_payload(packed, tag=tag), grads)
+
+
 class _RemoteLearner:
     """Learner living in its own actor; grads allreduced through the
     collective plane before the optimizer step (reference: DDP learners)."""
 
     def __init__(self, spec, loss_fn, lr, grad_clip, seed, rank, world_size, group_name, use_mesh=False,
                  grad_sync="host", optimizer="adam", device="cpu"):
-        if grad_sync != "host":
-            raise NotImplementedError(PODRACER)
         self.rank = rank
         self.world_size = world_size
         self.group_name = group_name
+        self.grad_sync = grad_sync
+        self._grad_step = 0
         self.learner = Learner(spec, loss_fn, lr, grad_clip, seed, optimizer, use_mesh=use_mesh, device=device)
 
     def device_info(self) -> dict:
@@ -271,19 +309,51 @@ class _RemoteLearner:
         return True
 
     def init_weight_collective(self, world_size, rank, backend, group_name):
-        raise NotImplementedError(PODRACER)
+        """Join the learner<->sampler WEIGHT group (distinct from the grad
+        allreduce group above): this actor is the holder rank the
+        device-object broadcast fans out from."""
+        from ray_tpu_torch.util import collective
+
+        collective.init_collective_group(world_size=world_size, rank=rank, backend=backend, group_name=group_name)
+        return True
+
+    def group_roster(self, group_name):
+        """Roster snapshot of a group this actor belongs to."""
+        from ray_tpu_torch.util import collective
+
+        return collective.roster(group_name)
+
+    def get_coll_stats(self) -> dict:
+        """This process's collective counters (``p2p.COLL``)."""
+        from ray_tpu_torch.util.collective.p2p import COLL
+
+        return COLL.snapshot()
+
+    def pack_weights(self):
+        """One flat vector of the current parameters, on the learner's
+        device. This actor has ``tensor_transport="collective"``, so the
+        vector stays resident here (the holder) and only its descriptor
+        travels."""
+        return pack_weights(self.learner.module)
 
     def update(self, batch: SampleBatch, loss_cfg: dict) -> dict:
         if self.world_size > 1:
             # Data-parallel grad sync: compute grads, allreduce, then step.
-            from ray_tpu_torch.util import collective
+            from ray_tpu_torch.util.collective.p2p import COLL
 
             learner = self.learner
             loss, metrics, grads = learner.compute_grads(batch, loss_cfg)
-            reduced = [collective.allreduce(g / self.world_size, group_name=self.group_name) for g in grads]
+            self._grad_step += 1
+            before = COLL.reduce_sends
+            reduced = allreduce_mean(grads, self.group_name, self.world_size, tag=f"grad{self._grad_step}")
             with full_f32(learner.device):
                 learner.opt.step(reduced, global_norm(reduced))
-            return _host_metrics(metrics, loss)
+            out = _host_metrics(metrics, loss)
+            if self.grad_sync == "device_allreduce":
+                # The tree reduce sends this update made (the relay tree of
+                # the host plane; a gloo group makes none).
+                out["grad_allreduce_tree"] = float(COLL.reduce_sends - before)
+            return out
         return self.learner.update(batch, loss_cfg)
 
     def get_weights(self):
@@ -300,14 +370,20 @@ class LearnerGroup:
     common single-host case); >0 -> remote actors with grad allreduce, each
     holding ``num_gpus_per_learner`` of the runtime's GPU resource. A remote
     learner on the card (``device='cuda'``) must hold a GPU; several learners
-    on cards need more than one card (ROADMAP 5b)."""
+    on cards need more than one card (ROADMAP 5b).
+
+    The gradients of an update are one packed vector allreduced over the
+    gradient group: gloo with ``grad_sync="host"``, the host plane ("cpu",
+    the relay tree) with ``grad_sync="device_allreduce"``, unless
+    ``collective_backend`` names one."""
 
     def __init__(self, spec, loss_fn, *, lr=5e-5, grad_clip=None, seed=0,
                  num_learners: int = 0, num_gpus_per_learner: float = 0,
-                 collective_backend: str = "gloo", group_name: str = "rllib_learners",
+                 collective_backend: Optional[str] = None, group_name: str = "rllib_learners",
                  use_mesh: bool = False, grad_sync: str = "host", optimizer: str = "adam", device="cuda"):
-        if grad_sync != "host":
-            raise NotImplementedError(PODRACER)
+        if grad_sync not in ("host", "device_allreduce"):
+            raise ValueError(f"grad_sync {grad_sync!r}: 'host' or 'device_allreduce'")
+        collective_backend = collective_backend or ("cpu" if grad_sync == "device_allreduce" else "gloo")
         self._local: Optional[Learner] = None
         self._actors: list = []
         dev = torch.device(device)
@@ -320,7 +396,11 @@ class LearnerGroup:
             if num_learners > 1:
                 raise NotImplementedError(
                     "learners on more than one card (an NCCL group of several ranks) are not ported yet: ROADMAP 5b")
-        cls = ray_tpu_torch.remote(num_cpus=1, num_gpus=num_gpus_per_learner or None)(_RemoteLearner)
+        # tensor_transport: a pack_weights() return stays resident on the
+        # learner actor (the holder); the Podracer sync broadcasts its
+        # descriptor instead of shipping the vector through the store.
+        cls = ray_tpu_torch.remote(num_cpus=1, num_gpus=num_gpus_per_learner or None,
+                                   tensor_transport="collective")(_RemoteLearner)
         self._actors = [
             cls.remote(spec, loss_fn, lr, grad_clip, seed, rank, num_learners, group_name, use_mesh, grad_sync,
                        optimizer, str(dev))
@@ -408,13 +488,47 @@ class LearnerGroup:
         else:
             ray_tpu_torch.get([a.set_weights.remote(weights) for a in self._actors])
 
-    # ---- Podracer weight sync (device-object broadcast path): ROADMAP A13d ----
+    # ---- Podracer weight sync (device-object broadcast path) ----
 
     def init_weight_collective(self, world_size: int, rank: int, backend: str, group_name: str):
-        raise NotImplementedError(PODRACER)
+        """Join the learner<->sampler weight group as the HOLDER rank. Local
+        mode: this process owns the parameters and is the holder. The join
+        lands this rank in the group's roster; ``world_size`` is only the
+        initial gang size: every broadcast snapshots the roster, so the
+        sampler fleet can grow, shrink or churn under the holder."""
+        if self._local is not None:
+            from ray_tpu_torch.util import collective
+
+            collective.init_collective_group(world_size=world_size, rank=rank, backend=backend,
+                                             group_name=group_name)
+            return True
+        return ray_tpu_torch.get(self._actors[0].init_weight_collective.remote(world_size, rank, backend, group_name))
 
     def weight_group_roster(self, group_name: str):
-        raise NotImplementedError(PODRACER)
+        """The weight group's membership as the holder sees it at the next
+        broadcast: ``{"epoch", "ranks", "world_size"}``, or None before the
+        first roster publish."""
+        if self._local is not None:
+            from ray_tpu_torch.util import collective
+
+            return collective.roster(group_name)
+        return ray_tpu_torch.get(self._actors[0].group_roster.remote(group_name))
+
+    def holder_coll_stats(self) -> dict:
+        """The weight holder's collective counters (``bcast_sends`` climbs by
+        one a broadcast): this process's in local mode, else the learner
+        actor's."""
+        if self._local is not None:
+            from ray_tpu_torch.util.collective.p2p import COLL
+
+            return COLL.snapshot()
+        return ray_tpu_torch.get(self._actors[0].get_coll_stats.remote())
 
     def pack_weight_ref(self):
-        raise NotImplementedError(PODRACER)
+        """ObjectRef of the packed weight vector as a DEVICE OBJECT on the
+        learner's device: the one descriptor a sync broadcasts. Local mode
+        puts from this process (the holder); remote mode returns the learner
+        actor's resident result."""
+        if self._local is not None:
+            return ray_tpu_torch.put(pack_weights(self._local.module), tensor_transport="collective")
+        return self._actors[0].pack_weights.remote()

@@ -11,10 +11,12 @@ V-trace/IS corrections in IMPALA/APPO absorb the policy staleness this
 introduces.
 
 A worker's policy forward runs on the CPU, by design: rollouts stay off the
-card, as the JAX package pins its workers to the CPU platform. Weights reach
-the workers as numpy trees through the object store (host weight sync). The
-Podracer device path (a weight group and a device-object broadcast of packed
-weights) is not ported yet: its methods raise, naming ROADMAP A13d.
+card, as the JAX package pins its workers to the CPU platform (here the
+process is pinned to the host: a CUDA tensor it receives lands on the CPU).
+Weights reach the workers as numpy trees through the object store (host
+weight sync), or, on the Podracer path, as one packed vector broadcast over
+the learner<->sampler weight group, whose membership follows the fleet
+(respawns re-register at their rank, resizes join or evict tail ranks).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import List, Optional
 import numpy as np
 
 import ray_tpu_torch
-from ray_tpu_torch.rllib.core.learner import PODRACER
+from ray_tpu_torch.rllib.core.learner import unpack_weights, weights_checksum
 from ray_tpu_torch.rllib.core.rl_module import RLModule
 from ray_tpu_torch.rllib.env.vector_env import make_vector_env
 from ray_tpu_torch.rllib.policy.sample_batch import (
@@ -43,6 +45,17 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+def _in_actor_process() -> bool:
+    """Whether this runs in an actor's own worker process (its creation or
+    one of its calls), not in a driver or a task."""
+    from ray_tpu_torch._private import worker_context
+    from ray_tpu_torch._private.core_worker import WORKER
+
+    cw = worker_context.get_core_worker_if_initialized()
+    spec = cw.current_task_spec if cw is not None and cw.mode == WORKER else None
+    return spec is not None and (spec.is_actor_creation() or spec.is_actor_task())
 
 
 class RolloutWorker:
@@ -108,8 +121,15 @@ class RolloutWorker:
         # on purpose, as the JAX package pins its workers to the CPU. The
         # worker holds one CPU, and its forwards are a few rows: one intra-op
         # thread (several workers' thread pools on the same cores spin
-        # against each other, ~20x slower).
+        # against each other, ~20x slower). A worker actor's process holds
+        # no card: a packed weight vector broadcast from a learner on the
+        # card lands there on the CPU. A worker built in the caller's
+        # process does not pin it (it sets only the thread count).
         torch.set_num_threads(1)
+        if _in_actor_process():
+            from ray_tpu_torch._private.serialization import pin_to_host
+
+            pin_to_host()
         self._module = RLModule(spec, device="cpu").requires_grad_(False)
         self._gen = torch.Generator().manual_seed(seed + worker_index)
         self._params = None
@@ -126,14 +146,32 @@ class RolloutWorker:
         self._params = weights
         return True
 
-    # ---- Podracer weight sync (device-object broadcast path): ROADMAP A13d ----
+    # ---- Podracer weight sync (device-object broadcast path) ----
 
-    def init_collective(self, world_size: int, rank: int, backend: str = "gloo",
+    def init_collective(self, world_size: int, rank: int, backend: str = "cpu",
                         group_name: str = "rllib_weights") -> bool:
-        raise NotImplementedError(PODRACER)
+        """Join the learner<->sampler weight group: a device-object broadcast
+        from the learner then lands in this process's direct mailbox, and
+        set_packed_weights' argument resolves from it with no pull."""
+        from ray_tpu_torch.util import collective
+
+        collective.init_collective_group(world_size=world_size, rank=rank, backend=backend, group_name=group_name)
+        return True
 
     def set_packed_weights(self, packed) -> bool:
-        raise NotImplementedError(PODRACER)
+        """Weight sync from ONE flat vector (``pack_weights``), already on
+        the CPU here. The descriptor argument resolved before this runs: a
+        group member takes the broadcast payload from its inbox; a
+        respawned replacement whose first sync raced its re-register pulls
+        it once (counted as ``host_sync_fallbacks``). The vector is unpacked
+        against this worker's own module, so only values crossed the wire."""
+        self._module.load_params(unpack_weights(packed, self._module.param_tree()))
+        self._params = packed
+        return True
+
+    def weights_checksum(self) -> str:
+        """SHA-256 of this worker's packed weights (``weights_checksum``)."""
+        return weights_checksum(self._module)
 
     def _shape_obs(self, obs: np.ndarray, explore: bool, peek: bool = False) -> np.ndarray:
         """One pipeline call: while exploring, stateful stages update
@@ -343,6 +381,23 @@ class RolloutWorker:
             self._filter_delta = MeanStdFilter() if self._filter_stage is not None else None
         return True
 
+    def rejoin_collective(self, group_name: str = "rllib_weights") -> bool:
+        """Re-assert this worker's roster membership in a group it already
+        initialized (a transient stall can get a live member evicted by a
+        broadcast that timed out on it). False when the group is unknown
+        here: the caller must init, not rejoin."""
+        from ray_tpu_torch.util import collective
+
+        return collective.rejoin_group(group_name) is not None
+
+    def get_coll_stats(self) -> dict:
+        """This process's collective counters (``p2p.COLL``): a sampler on the
+        broadcast plane shows ``bcast_recvs`` climbing while
+        ``host_sync_fallbacks`` stays flat."""
+        from ray_tpu_torch.util.collective.p2p import COLL
+
+        return COLL.snapshot()
+
     def ping(self) -> bool:
         return True
 
@@ -375,6 +430,13 @@ class WorkerSet:
         )
         self._workers = [self._make_worker(i + 1) for i in range(num_workers)]
         self._indices = list(range(1, num_workers + 1))
+        # Elastic weight-group state (set by init_weight_group): the
+        # (group_name, backend, base_rank) triple and each worker's rank in
+        # the group, by list position. _replace_worker re-registers a
+        # respawned replacement at its OLD rank; resize() joins or evicts
+        # ranks at the tail. None = no weight group (host sync).
+        self._weight_group: Optional[tuple] = None
+        self._group_ranks: List[int] = []
         # Async env-runner mode (None = sync). Set by start_async; replaced
         # workers are restarted into the same mode.
         self._async_fragment_len: Optional[int] = None
@@ -408,9 +470,11 @@ class WorkerSet:
             )
             del self._workers[pos]
             del self._indices[pos]
+            self._evict_rank(pos)
             return None
         self._restarts += 1
         self._workers[pos] = self._make_worker(self._indices[pos])
+        self._reregister_worker(pos)
         if self._async_fragment_len is not None:
             # Restarted into async mode; its runner idles until the next
             # weight broadcast delivers params.
@@ -419,6 +483,37 @@ class WorkerSet:
             except Exception:
                 pass
         return self._workers[pos]
+
+    def _reregister_worker(self, pos: int):
+        """Put a respawned replacement back into the weight group AT ITS OLD
+        RANK. The join bumps the roster epoch, so the learner's next
+        broadcast snapshots a membership that includes it: at most the sync
+        that raced the respawn pulls. A failed re-register leaves the worker
+        on the pull path (correct, counted, slower)."""
+        if self._weight_group is None or pos >= len(self._group_ranks):
+            return
+        group_name, backend, _ = self._weight_group
+        rank = self._group_ranks[pos]
+        try:
+            ray_tpu_torch.get(self._workers[pos].init_collective.remote(max(self._group_ranks) + 1, rank, backend,
+                                                                       group_name), timeout=60)
+        except Exception:
+            logger.warning("re-register of respawned worker into weight group %r at rank %d failed; "
+                           "it stays on the pull path", group_name, rank, exc_info=True)
+
+    def _evict_rank(self, pos: int):
+        """Driver-side leave for a worker dropped from the set: a killed
+        actor cannot leave for itself, so its rank leaves the roster here
+        (an epoch bump) and the next broadcast stops addressing it."""
+        if self._weight_group is None or pos >= len(self._group_ranks):
+            return
+        rank = self._group_ranks.pop(pos)
+        try:
+            from ray_tpu_torch.util import collective
+
+            collective.evict_member(self._weight_group[0], rank, reason="death")
+        except Exception:
+            logger.debug("roster eviction of rank %d from %r failed", rank, self._weight_group[0], exc_info=True)
 
     def _replace_by_identity(self, w):
         """_replace_worker keyed by actor handle (safe across drops that
@@ -432,7 +527,12 @@ class WorkerSet:
         self._sync_weights_via(lambda w: w.set_weights.remote(weights))
 
     def sync_packed_weights(self, ref):
-        raise NotImplementedError(PODRACER)
+        """Podracer path: every worker sets weights from the SAME packed
+        device-object ref (the learner already broadcast its payload over the
+        weight group, so members resolve from their inbox). A respawned
+        replacement was re-registered at its old rank, so it is back on the
+        broadcast plane from the next sync on."""
+        self._sync_weights_via(lambda w: w.set_packed_weights.remote(ref))
 
     def _sync_weights_via(self, submit):
         """Shared fault-tolerant sync loop: a dead worker is respawned and
@@ -452,16 +552,28 @@ class WorkerSet:
                 if replacement is not None:
                     ray_tpu_torch.get(submit(replacement), timeout=120)
 
-    def init_weight_group(self, group_name: str, *, backend: str = "gloo",
+    def init_weight_group(self, group_name: str, *, backend: str = "cpu",
                           world_size: int | None = None, base_rank: int = 1):
-        raise NotImplementedError(PODRACER)
+        """Gang-join every rollout worker into the learner<->sampler weight
+        group at ranks base_rank..base_rank+N-1 (rank 0 is the learner, the
+        holder). Membership is elastic: each join lands in the group's
+        roster, respawns re-register at their old rank, and ``resize`` grows
+        or shrinks the roster at the tail; every broadcast snapshots it."""
+        world = world_size or (base_rank + len(self._workers))
+        ray_tpu_torch.get([w.init_collective.remote(world, base_rank + i, backend, group_name)
+                           for i, w in enumerate(self._workers)], timeout=120)
+        self._weight_group = (group_name, backend, base_rank)
+        self._group_ranks = [base_rank + i for i in range(len(self._workers))]
+        return world
 
     def resize(self, num_workers: int) -> int:
-        """Grow or shrink the sampler fleet mid-training. Growing spawns
-        workers at fresh worker indices; shrinking stops and kills the tail
-        workers. New workers have no params until the next weight sync —
-        callers should sync immediately after a grow. Returns the new worker
-        count."""
+        """Grow or shrink the sampler fleet mid-training without leaving the
+        broadcast plane. Growing spawns workers at fresh worker indices and
+        joins them into the weight group (when there is one) at fresh tail
+        ranks; shrinking stops and kills the tail workers and evicts their
+        ranks from the roster. New workers have no params until the next
+        weight sync: callers should sync right after a grow. Returns the new
+        worker count."""
         target = int(num_workers)
         if target < 1:
             raise ValueError("resize needs at least one rollout worker")
@@ -481,6 +593,15 @@ class WorkerSet:
                     pass
             del self._workers[target:]
             del self._indices[target:]
+            if self._weight_group is not None:
+                from ray_tpu_torch.util import collective
+
+                for rank in self._group_ranks[target:]:
+                    try:
+                        collective.evict_member(self._weight_group[0], rank, reason="leave")
+                    except Exception:
+                        logger.debug("shrink: roster eviction of rank %d failed", rank, exc_info=True)
+                del self._group_ranks[target:]
             logger.info("worker set shrunk to %d samplers", target)
             return target
         # Grow: fresh worker indices (never reuse — env seeds derive from
@@ -492,6 +613,20 @@ class WorkerSet:
             self._indices.append(next_idx)
             new_positions.append(len(self._workers) - 1)
             next_idx += 1
+        if self._weight_group is not None:
+            group_name, backend, base_rank = self._weight_group
+            next_rank = max(self._group_ranks, default=base_rank - 1) + 1
+            new_ranks = list(range(next_rank, next_rank + len(new_positions)))
+            self._group_ranks.extend(new_ranks)
+            world = max(self._group_ranks) + 1
+            refs = [self._workers[pos].init_collective.remote(world, rank, backend, group_name)
+                    for pos, rank in zip(new_positions, new_ranks)]
+            for rank, ref in zip(new_ranks, refs):
+                try:
+                    ray_tpu_torch.get(ref, timeout=120)
+                except Exception:
+                    logger.warning("grow: weight-group join at rank %d failed; that worker pulls until "
+                                   "re-registered", rank, exc_info=True)
         if self._async_fragment_len is not None:
             for pos in new_positions:
                 try:
@@ -502,7 +637,51 @@ class WorkerSet:
         return target
 
     def ensure_registered(self):
-        raise NotImplementedError(PODRACER)
+        """Pre-sync check: a transient stall can get a LIVE worker evicted
+        from the weight-group roster (a broadcast that timed out on it
+        evicts every failed rank). One roster read; a live worker whose rank
+        fell off re-joins before the next broadcast, so a stall costs at
+        most one pull-path sync."""
+        if self._weight_group is None:
+            return
+        from ray_tpu_torch.util import collective
+
+        group_name = self._weight_group[0]
+        try:
+            snap = collective.roster(group_name)
+        except Exception:
+            logger.debug("roster read of %r failed", group_name, exc_info=True)
+            return
+        if snap is None:
+            return
+        listed = set(snap["ranks"])
+        for pos, rank in enumerate(self._group_ranks):
+            if rank in listed or pos >= len(self._workers):
+                continue
+            logger.warning("live worker at rank %d fell off weight-group %r roster; re-joining", rank, group_name)
+            try:
+                ok = ray_tpu_torch.get(self._workers[pos].rejoin_collective.remote(group_name), timeout=60)
+            except Exception:
+                ok = False
+            if not ok:
+                # The worker never held the group (a respawn whose re-register
+                # failed): a full init at its old rank.
+                self._reregister_worker(pos)
+
+    def coll_stats(self) -> List[Optional[dict]]:
+        """Each worker's collective counters (None for an unreachable one)."""
+        refs = [w.get_coll_stats.remote() for w in self._workers]
+        out: List[Optional[dict]] = []
+        for ref in refs:
+            try:
+                out.append(ray_tpu_torch.get(ref, timeout=30))
+            except Exception:
+                out.append(None)
+        return out
+
+    def weights_checksums(self) -> List[str]:
+        """Each worker's ``weights_checksum``."""
+        return ray_tpu_torch.get([w.weights_checksum.remote() for w in self._workers], timeout=60)
 
     def sample(self, steps_per_worker: int, explore: bool = True) -> List[SampleBatch]:
         """Synchronous parallel sampling with fault tolerance: a worker that

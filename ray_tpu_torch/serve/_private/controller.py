@@ -156,8 +156,13 @@ class ServeController:
     def graceful_shutdown(self):
         with self._lock:
             self._deployments.clear()
-        self._reconcile_once()
+        # Shut down first: every replica is then retired in turn, its
+        # prepare_for_shutdown hook run to its end (bounded) before the kill.
+        # Started drainers would race the manager's kills below, which can
+        # cut a hook mid-way (an LLM replica's prefix-row retraction: ROADMAP
+        # C16).
         self._shutdown = True
+        self._reconcile_once()
         # Guaranteed release: whatever reconcile missed (mid-start replicas,
         # in-flight probes), the manager kills and frees.
         with self._mgr_lock:

@@ -678,6 +678,10 @@ class _CollStats:
         for name in self.__slots__:
             setattr(self, name, 0)
 
+    def snapshot(self) -> dict:
+        """Every counter's current value."""
+        return {name: getattr(self, name) for name in self.__slots__}
+
 
 COLL = _CollStats()
 

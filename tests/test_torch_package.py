@@ -34,7 +34,11 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.data.datasource.webdataset_datasource, ray_tpu_torch.data.datasource.mongo_datasource, "
         "ray_tpu_torch.train.predictor, ray_tpu_torch.tune, ray_tpu_torch.rllib, ray_tpu_torch.rllib.offline, "
         "ray_tpu_torch.rllib.evaluation, ray_tpu_torch.rllib.connectors, ray_tpu_torch.rllib.models, "
-        "ray_tpu_torch.rllib.utils, ray_tpu_torch.rllib.env\n"
+        "ray_tpu_torch.rllib.utils, ray_tpu_torch.rllib.env, ray_tpu_torch.rllib.algorithms.pg.pg, "
+        "ray_tpu_torch.rllib.algorithms.a2c.a2c, ray_tpu_torch.rllib.algorithms.a3c.a3c, "
+        "ray_tpu_torch.rllib.algorithms.ddppo.ddppo, ray_tpu_torch.rllib.algorithms.dqn.dqn, "
+        "ray_tpu_torch.rllib.algorithms.simple_q.simple_q, ray_tpu_torch.rllib.algorithms.apex_dqn.apex_dqn, "
+        "ray_tpu_torch.rllib.algorithms.r2d2.r2d2\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -82,7 +86,11 @@ def test_no_source_imports_jax_or_ray_tpu():
                    "rllib/algorithms/appo/appo.py", "rllib/algorithms/dt/dt.py", "rllib/utils/vtrace.py",
                    "rllib/policy/policy.py", "rllib/policy/sample_batch.py", "rllib/offline/__init__.py",
                    "rllib/offline/estimators.py", "rllib/env/cartpole.py", "rllib/env/spaces.py",
-                   "rllib/env/vector_env.py", "rllib/connectors/connector.py", "rllib/models/__init__.py"):
+                   "rllib/env/vector_env.py", "rllib/connectors/connector.py", "rllib/models/__init__.py",
+                   "rllib/algorithms/pg/pg.py", "rllib/algorithms/a2c/a2c.py", "rllib/algorithms/a3c/a3c.py",
+                   "rllib/algorithms/ddppo/ddppo.py", "rllib/algorithms/dqn/dqn.py",
+                   "rllib/algorithms/simple_q/simple_q.py", "rllib/algorithms/apex_dqn/apex_dqn.py",
+                   "rllib/algorithms/r2d2/r2d2.py"):
         assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -177,6 +185,21 @@ def test_rllib_needs_no_gymnasium():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ("env 'Pendulum-v1' needs the 'gymnasium' package, which is not installed "
                                   "(the port carries its own ['CartPole-v1'] only)")
+
+
+def test_rllib_exports_exactly_the_ported_algorithms():
+    """ray_tpu_torch.rllib names every ported algorithm with its config, and
+    nothing of the JAX package's that is not ported."""
+    import ray_tpu_torch.rllib as trl
+
+    ported = ["A2C", "A3C", "APPO", "ApexDQN", "DDPPO", "DQN", "DT", "IMPALA", "PG", "PPO", "R2D2", "SimpleQ"]
+    configs = sorted(n[: -len("Config")] for n in dir(trl) if n.endswith("Config") and n != "AlgorithmConfig")
+    assert configs == sorted(ported)
+    for name in ported:
+        assert issubclass(getattr(trl, name), trl.Algorithm)
+        assert getattr(trl, f"{name}Config")().algo_class is getattr(trl, name)
+    for name in ("SAC", "DDPG", "TD3", "CQL", "MARWIL", "BC", "ES", "ARS", "QMIX", "MADDPG", "AlphaZero"):
+        assert not hasattr(trl, name), name
 
 
 def test_worker_runtime_imports_no_torch():
@@ -280,7 +303,16 @@ def test_entry_points_raise_without_a_card():
     # RLlib: the learner, the learner group, an Algorithm (before it starts a
     # rollout worker), the Decision Transformer and a Policy run on the card
     # unless asked for the CPU.
-    from ray_tpu_torch.rllib import DTConfig, PPOConfig, Policy
+    from ray_tpu_torch.rllib import (
+        A3CConfig,
+        ApexDQNConfig,
+        DDPPOConfig,
+        DQNConfig,
+        DTConfig,
+        PPOConfig,
+        Policy,
+        R2D2Config,
+    )
     from ray_tpu_torch.rllib.algorithms.ppo.ppo import ppo_loss
     from ray_tpu_torch.rllib.core import Learner, LearnerGroup, RLModuleSpec
     from ray_tpu_torch.rllib.env import Box, Discrete
@@ -295,6 +327,11 @@ def test_entry_points_raise_without_a_card():
         PPOConfig().environment("CartPole-v1").build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DTConfig().environment("CartPole-v1").offline_data("unused").build()
+    # The Q-learners and A3C's apply step hold their weights on the card;
+    # DD-PPO's acting module is there (its workers learn on the CPU).
+    for config in (DQNConfig, R2D2Config, ApexDQNConfig, A3CConfig, DDPPOConfig):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            config().environment("CartPole-v1").build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Policy.from_spaces(Box(-1.0, 1.0, (4,)), Discrete(2))
 

@@ -23,8 +23,8 @@ cluster.
   within f32 bars of it (the FQE model started from the reference's weights,
   ``fqe_params_from_jax``), and ``tests/test_rllib_ope.py``'s cases on the
   port at their own bars.
-- The Podracer device paths, multi-card learners and framework names raise,
-  naming their ROADMAP item.
+- Multi-card learners and a learner mesh over more than one rank raise,
+  naming their ROADMAP item; an NCCL weight group and framework names raise.
 
 ~60 s here, most of it the JAX side (eager ops and compiles).
 """
@@ -64,6 +64,18 @@ from ray_tpu_torch.rllib.utils.replay_buffers import PrioritizedReplayBuffer, Re
 from ray_tpu_torch.rllib.utils.vtrace import vtrace
 
 F32 = dict(rtol=1e-5, atol=1e-5)  # f32 on the CPU, both sides
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's forwards and updates are small: torch's intra-op pool
+    over every core, beside the suite's other test processes, slowed the
+    estimators' fits many times over. One thread for the module, restored
+    after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 SPECS = {  # name: RLModuleSpec kwargs (the same for both packages)
     "mlp-discrete": dict(obs_dim=4, action_dim=3, discrete=True),
     "mlp-continuous": dict(obs_dim=6, action_dim=2, discrete=False),
@@ -756,21 +768,29 @@ def test_policy_applies_observation_filter(tmp_path, spaces):
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
-    from ray_tpu_torch.rllib import IMPALAConfig, PPOConfig
+    from ray_tpu_torch.rllib import PPOConfig
 
     spec = trm.RLModuleSpec(**SPECS["mlp-discrete"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-        tl.LearnerGroup(spec, ppo_loss, grad_sync="device_allreduce", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-        tl.LearnerGroup(spec, ppo_loss, device="cpu").pack_weight_ref()
     with pytest.raises(NotImplementedError, match="ROADMAP 5b"):
         tl.LearnerGroup(spec, ppo_loss, num_learners=2, num_gpus_per_learner=1, device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP 5b"):
+        tl.LearnerGroup(spec, ppo_loss, num_learners=2, num_gpus_per_learner=1, grad_sync="device_allreduce",
+                        device="cuda")
     with pytest.raises(ValueError, match="num_gpus_per_learner"):
         tl.LearnerGroup(spec, ppo_loss, num_learners=1, device="cuda")
-    # weight_sync="device_broadcast" raises in setup, before any worker starts.
-    cfg = (IMPALAConfig().environment("CartPole-v1").training(weight_sync="device_broadcast")
-           .resources(device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-        cfg.build()
+    # A learner mesh over more than one rank of a process group (A9f); on one
+    # rank it is the same update.
+    import torch.distributed as dist
+
+    assert tl.Learner(spec, ppo_loss, use_mesh=True, device="cpu").module.device.type == "cpu"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dist, "is_initialized", lambda: True)
+        mp.setattr(dist, "get_world_size", lambda group=None: 2)
+        with pytest.raises(NotImplementedError, match="ROADMAP A9f"):
+            tl.Learner(spec, ppo_loss, use_mesh=True, device="cpu")
+    with pytest.raises(ValueError, match="grad_sync"):
+        tl.LearnerGroup(spec, ppo_loss, grad_sync="nccl", device="cpu")
+    with pytest.raises(ValueError, match="never NCCL"):
+        PPOConfig().training(weight_sync="device_broadcast", weight_sync_backend="nccl")
     with pytest.raises(ValueError, match="runs on torch"):
         PPOConfig().framework("jax")

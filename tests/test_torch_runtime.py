@@ -152,6 +152,32 @@ def test_kill_ends_the_actor(cluster):
             rt.get(a.ping.remote(), timeout=10)
 
 
+def test_kill_during_creation_frees_its_resources(cluster):
+    """An actor killed before its worker is up stays dead: the worker exits
+    when it comes up and the actor's CPUs return, so an actor needing every
+    CPU, queued behind them, starts (ROADMAP C15: the reference's GCS
+    revived such an actor, which then held its CPUs with no handle left to
+    kill it, and the big actor never started)."""
+
+    @rt.remote(num_cpus=1)
+    class Idle:
+        def ping(self):
+            return "pong"
+
+    total = int(rt.cluster_resources()["CPU"])
+    actors = [Idle.remote() for _ in range(2)]
+    for a in actors:
+        rt.kill(a)
+    big = Idle.options(num_cpus=total).remote()
+    try:
+        assert rt.get(big.ping.remote(), timeout=60) == "pong"
+    finally:
+        rt.kill(big)
+    for a in actors:
+        with pytest.raises(ActorDiedError):
+            rt.get(a.ping.remote(), timeout=10)
+
+
 def test_workers_belong_to_the_port(cluster):
     """A worker is started as the port's entry, reads the port's variables,
     and imports nothing of JAX or of ray_tpu."""

@@ -686,3 +686,33 @@ def test_replica_failure_is_reconciled(serve_instance):
             assert rt.get(h.remote(None), timeout=30) == "alive"
     finally:
         serve.delete("Fragile")
+
+
+def test_shutdown_runs_each_replicas_hook_to_its_end(serve_instance):
+    """serve.shutdown() lets each replica's prepare_for_shutdown finish
+    before the replica is killed (ROADMAP C16: drainers raced the kills, and
+    a hook slower than the kill's ~50 ms was cut). Last in the module: it
+    shuts serve down, then starts it again for the fixture."""
+    key = f"test/hook-done/{os.getpid()}"
+
+    @serve.deployment
+    class SlowHook:
+        def __call__(self, request):
+            return "ok"
+
+        def prepare_for_shutdown(self):
+            from ray_tpu_torch._private import worker_context
+
+            time.sleep(0.5)
+            worker_context.get_core_worker().gcs.call("kv_put", {"key": key, "value": b"1"}, timeout=10)
+
+    serve.run(SlowHook.bind(), name="slow-hook", route_prefix="/slow-hook")
+    assert _http("/slow-hook") == "ok"
+    serve.shutdown()
+    from ray_tpu_torch._private import worker_context
+
+    gcs = worker_context.get_core_worker().gcs
+    assert gcs.call("kv_get", {"key": key}, timeout=10).get("found"), "the hook was cut before its end"
+    gcs.call("kv_del", {"key": key}, timeout=10)
+    serve.start()
+
