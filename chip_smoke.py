@@ -238,9 +238,25 @@ line:
    same bars, ms an update. (g) Ape-X DQN (2 explorers, 2 shards), PG, A2C
    and A3C (the learner or the apply step on the card) and DD-PPO (2 CPU
    workers, digests equal), built together on threads (their worker
-   processes start at once), then an iteration each. Every flash launch in
-   this process over (d)-(g) is counted: the kernels line's rows carry the
-   count as "rllib_families_launches" (0: these paths compute no attention).
+   processes start at once), then an iteration each. (h) The continuous
+   family at each config's defaults (RLLIB_CONTINUOUS): SAC on the port's
+   Pendulum-v1 for 2 iterations (env steps/s, ms acting a step, ms an
+   update), its first update on the card against the same update on the CPU
+   from the same weights, batch and draws (RLLIB_ATARI_RTOL on the metrics,
+   RLLIB_ATARI_GRAD_RTOL on the gradients, TF32 switched on around it, and
+   the TF32 control outside the gradient bar); TD3 for 2 iterations, the
+   actor, its Adam moments and the targets moving on every second update
+   only; CQL (200 updates) on a Pendulum dataset written by the port's env,
+   its first update held to the CPU's likewise, both terms finite; CRR (exp
+   weights) on 60/40 expert/random CartPole data, losses finite, greedy
+   reward; Ape-X DDPG with 2 explorers pinned to the host and the learner on
+   the card for 2 iterations, the first learner step with non-uniform
+   importance weights (its weighted critic loss, TD errors and gradients)
+   held to the CPU's likewise, the explorers' packed weights hashing to the
+   learner's after a sync; MADDPG on a 2-agent 1-D spread for 2 iterations,
+   its first update held to the CPU's likewise. Every flash launch in this
+   process over (d)-(h) is counted: the kernels line's rows carry the count
+   as "rllib_families_launches" (0: these paths compute no attention).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
@@ -406,6 +422,22 @@ DT_SHAPE = dict(B=64, T=60, H=2, D=32)  # DT's attention: batch 64, 3 x context 
 # DD-PPO (2 CPU workers each), built together, one iteration each.
 RLLIB_FAMILIES = dict(podracer_iters=3, podracer_grow=4, atari_members=4, atari_reps=5, sync_reps=5,
                       dqn_iters=2, atari_dqn_rows=256, atari_dqn_timed=20, apex_learning_starts=200)
+# The rllib phase's continuous-action section (h), in the same cluster, each
+# algorithm at its config's defaults: SAC on the port's Pendulum-v1 for
+# `sac_iters` iterations (1000 env steps each, learning from step 1500), TD3
+# for `td3_iters` (one iteration at the defaults makes no update: learning
+# starts at step 1500), CQL for one iteration of 200 updates on `cql_rows`
+# rows of Pendulum written by the port's env and seeded numpy, CRR (exp
+# weights) for one iteration on `crr_rows` of tests/test_rllib_ars_crr.py's
+# 60/40 expert/random CartPole data, Ape-X DDPG (2 explorers pinned to the
+# host) for `apex_iters`, MADDPG on a 2-agent 1-D spread for `maddpg_iters`
+# (its first update at step 1000). The first update of SAC, CQL and MADDPG on
+# the card, and Ape-X DDPG's first weighted critic step, is held to the same
+# update on the CPU (same weights, batch and draws) at the Atari check's
+# bars, with its TF32 control; `timed_updates`
+# updates are timed after each run.
+RLLIB_CONTINUOUS = dict(sac_iters=2, td3_iters=2, cql_rows=2000, crr_rows=6000, apex_iters=2, maddpg_iters=2,
+                        timed_updates=50, delay_checked=6)
 # The R2D2 update on the card against the CPU's (full f32 on both): the loss
 # within RLLIB_ATARI_RTOL and the gradients within RLLIB_ATARI_GRAD_RTOL, the
 # Atari check's bars.
@@ -3079,6 +3111,455 @@ def rllib_families(torch, rt, card, device, failures) -> dict:
     return res
 
 
+def _spread_env_class():
+    """tests/test_rllib_r2d2_maddpg.py's Spread1D on the port's MultiAgentEnv
+    and Box: two agents on a line must cover goals at -0.5/+0.5 without
+    colliding; the shared min-assignment reward makes it cooperative."""
+    from ray_tpu_torch.rllib import MultiAgentEnv
+    from ray_tpu_torch.rllib.env import Box
+
+    class Spread1D(MultiAgentEnv):
+        possible_agents = ["agent_0", "agent_1"]
+
+        def __init__(self, config=None):
+            self._obs_space = Box(-2, 2, (4,), np.float32)
+            self._act_space = Box(-1, 1, (1,), np.float32)
+            self.goals = np.array([-0.5, 0.5], np.float32)
+            self.t = 0
+            self._rng = np.random.default_rng(0)
+
+        @property
+        def observation_space(self):
+            return self._obs_space
+
+        @property
+        def action_space(self):
+            return self._act_space
+
+        def reset(self, *, seed=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            self.pos = self._rng.uniform(-1, 1, 2).astype(np.float32)
+            self.t = 0
+            return self._obs(), {}
+
+        def _obs(self):
+            return {
+                "agent_0": np.array([self.pos[0], self.pos[1], *self.goals], np.float32),
+                "agent_1": np.array([self.pos[1], self.pos[0], *self.goals], np.float32),
+            }
+
+        def step(self, actions):
+            self.pos[0] = np.clip(self.pos[0] + 0.1 * float(actions["agent_0"][0]), -2, 2)
+            self.pos[1] = np.clip(self.pos[1] + 0.1 * float(actions["agent_1"][0]), -2, 2)
+            self.t += 1
+            d1 = abs(self.pos[0] - self.goals[0]) + abs(self.pos[1] - self.goals[1])
+            d2 = abs(self.pos[0] - self.goals[1]) + abs(self.pos[1] - self.goals[0])
+            r = -min(d1, d2)
+            if abs(self.pos[0] - self.pos[1]) < 0.1:
+                r -= 1.0
+            done = self.t >= 25
+            return self._obs(), {"agent_0": r / 2, "agent_1": r / 2}, {"__all__": done}, {"__all__": False}, {}
+
+    return Spread1D
+
+
+def _offline_data(path: str, env_id: str, rows: int, seed: int, expert_share: float = 0.0) -> int:
+    """A dataset through the port's env and JsonWriter, as the reference
+    tests write theirs: uniform random torques in [-2, 2] on Pendulum-v1
+    (tests/test_rllib_algorithms.py's CQL data); on CartPole-v1 a scripted
+    controller's action with probability ``expert_share``, else a random one
+    (tests/test_rllib_ars_crr.py's CRR data). Returns the row count."""
+    from ray_tpu_torch.rllib.env import make
+    from ray_tpu_torch.rllib.offline import JsonWriter
+    from ray_tpu_torch.rllib.policy.sample_batch import ACTIONS, DONES, NEXT_OBS, OBS, REWARDS, SampleBatch
+
+    env = make(env_id)
+    rng = np.random.default_rng(seed)
+    rows_ = {k: [] for k in (OBS, ACTIONS, REWARDS, DONES, NEXT_OBS)}
+    obs, _ = env.reset(seed=seed)
+    for _ in range(rows):
+        if env_id == "CartPole-v1":
+            a = int(obs[2] + 0.3 * obs[3] > 0) if rng.random() < expert_share else int(rng.integers(2))
+            nobs, r, term, trunc, _ = env.step(a)
+            rows_[ACTIONS].append(np.int64(a))
+        else:
+            a = rng.uniform(-1, 1, size=(1,)).astype(np.float32)
+            nobs, r, term, trunc, _ = env.step(a * 2.0)
+            rows_[ACTIONS].append(a)
+        rows_[OBS].append(np.asarray(obs, np.float32))
+        rows_[REWARDS].append(np.float32(r))
+        rows_[DONES].append(np.float32(term or trunc))
+        rows_[NEXT_OBS].append(np.asarray(nobs, np.float32))
+        obs = nobs
+        if term or trunc:
+            obs, _ = env.reset()
+    writer = JsonWriter(path)
+    writer.write(SampleBatch({k: np.asarray(v) for k, v in rows_.items()}))
+    writer.close()
+    return rows
+
+
+def _held_to_cpu(torch, A, label, card_fn, cpu_fn, control_fn, cuda, failures) -> dict:
+    """One update's metrics and gradients on the card (``card_fn``: full f32)
+    against the CPU's (``cpu_fn``), TF32 switched on around both: the metrics
+    within RLLIB_ATARI_RTOL, the gradients within RLLIB_ATARI_GRAD_RTOL, and
+    ``control_fn``'s gradients (the same loss with TF32 allowed) outside it."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        m_card, g_card = card_fn()
+        m_cpu, g_cpu = cpu_fn()
+        g_tf32 = control_fn() if cuda else None
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+    def flat(grads):
+        return torch.cat([g.detach().reshape(-1).float().cpu() for g in grads])
+
+    got = {k: float(v.detach()) for k, v in m_card.items()}
+    want = {k: float(v.detach()) for k, v in m_cpu.items()}
+    close = _close_metrics(got, want, list(want), RLLIB_ATARI_RTOL)
+    gap = A.mismatch(flat(g_card), flat(g_cpu))
+    tf32 = A.mismatch(flat(g_tf32), flat(g_cpu)) if g_tf32 is not None else None
+    print(f"{label} first update on the card against the CPU (bar rtol {RLLIB_ATARI_RTOL}): "
+          + ", ".join(f"{k} {got[k]:.6g} vs {want[k]:.6g} (rel {r:.1e})" for k, (r, _) in close.items())
+          + f"; gradients rel_l2 {gap['rel_l2']:.1e} (bar {RLLIB_ATARI_GRAD_RTOL}); the TF32 control's gradients "
+          f"rel_l2 {tf32['rel_l2'] if tf32 else float('nan'):.1e}")
+    if not all(ok for _, ok in close.values()) or not gap["rel_l2"] <= RLLIB_ATARI_GRAD_RTOL:
+        failures.append(f"{label}: the first update on the card parts from the CPU's: {close} {gap}")
+    if cuda and not tf32["rel_l2"] > RLLIB_ATARI_GRAD_RTOL:
+        failures.append(f"{label}: the TF32 control is within the bar ({tf32['rel_l2']:.2e})")
+    return {"rel": {k: r for k, (r, _) in close.items()}, "grad": gap, "tf32_control_grad": tf32}
+
+
+def _timed_updates(torch, cuda, fn, n) -> float:
+    """ms an update over ``n`` calls of ``fn`` (host clock to a synchronize)."""
+    if cuda:
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def rllib_continuous(torch, rt, card, device, failures, scratch) -> dict:
+    """Section (h) of the rllib phase, in its cluster: SAC, TD3, CQL, CRR,
+    Ape-X DDPG and MADDPG at their defaults. Returns their numbers; appends
+    to ``failures``."""
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib import (
+        ApexDDPGConfig, CQLConfig, CRRConfig, MADDPGConfig, SACConfig, TD3Config,
+    )
+    from ray_tpu_torch.rllib.algorithms.cql.cql import cql_loss
+    from ray_tpu_torch.rllib.algorithms.ddpg.ddpg import ddpg_critic_loss, ddpg_params_from_jax
+    from ray_tpu_torch.rllib.algorithms.maddpg.maddpg import maddpg_loss
+    from ray_tpu_torch.rllib.algorithms.off_policy import trainable
+    from ray_tpu_torch.rllib.algorithms.sac.sac import sac_loss
+    from ray_tpu_torch.rllib.core.learner import full_f32, to_device, weights_checksum
+    from ray_tpu_torch.rllib.core.rl_module import copy_into, host_tree, tree_leaves
+    from ray_tpu_torch.rllib.policy.sample_batch import ACTIONS, OBS
+
+    c = RLLIB_CONTINUOUS
+    cuda = device == "cuda"
+    res, marks = {}, {}
+
+    def twin(config, algo, trees=("params", "target")):
+        """The same algorithm on the CPU, holding ``algo``'s weights."""
+        cpu = config.resources(device="cpu").build()
+        for name in trees:
+            copy_into(getattr(cpu, name), host_tree(getattr(algo, name)))
+        return cpu
+
+    def on_cpu(tree):
+        return {k: v.detach().cpu() for k, v in tree.items()}
+
+    # ---- (h1) SAC on Pendulum-v1 at its defaults ----
+    t_sec = time.perf_counter()
+    sac_cfg = lambda: SACConfig().environment("Pendulum-v1").debugging(seed=0)  # noqa: E731
+    algo = sac_cfg().resources(device=device).build()
+    first, act_s = {}, []
+    try:
+        real_update, real_act = algo.update, algo._act
+
+        def checked_update(batch, draws=None):
+            if not first:
+                draws = algo._update_draws(len(batch[ACTIONS]))
+                tb = to_device(batch, algo.device)
+                cpu = twin(sac_cfg(), algo)
+                kw = dict(discrete=False, action_dim=algo.action_dim, gamma=algo._algo_config.gamma,
+                          target_entropy=algo.target_entropy)
+
+                def control():
+                    total, _ = sac_loss(algo.params, algo.target, tb, draws, **kw)
+                    return torch.autograd.grad(total, tree_leaves(algo.params))
+
+                first.update(_held_to_cpu(torch, A, "sac", lambda: algo.loss_and_grads(tb, draws),
+                                          lambda: cpu.loss_and_grads(to_device(batch, torch.device("cpu")), on_cpu(draws)),
+                                          control, cuda, failures))
+                cpu.cleanup()
+            return real_update(batch, draws)
+
+        def timed_act(obs, explore):
+            t = time.perf_counter()
+            out = real_act(obs, explore)
+            act_s.append(time.perf_counter() - t)
+            return out
+
+        algo.update, algo._act = checked_update, timed_act
+        iters = []
+        for _ in range(c["sac_iters"]):
+            t = time.perf_counter()
+            m = algo.step()
+            iters.append(time.perf_counter() - t)
+        steps = algo._algo_config.rollout_steps_per_iter
+        upd_ms = _timed_updates(torch, cuda, lambda: real_update(algo.buffer.sample(256)), c["timed_updates"])
+        print(f"sac on {card} (Pendulum-v1, hiddens (256, 256), batch 256, learning from step 1500): "
+              f"{c['sac_iters']} iterations of {steps} env steps in {[round(x, 2) for x in iters]} s "
+              f"({[round(steps / x) for x in iters]} env steps/s: the first random actions only, the second acting "
+              f"from step 1500 with one update a step); acting {np.median(act_s) * 1e3:.3f} ms median a step (one "
+              f"forward on the card, one read; {len(act_s)} steps); {upd_ms:.2f} ms an update ({c['timed_updates']} "
+              f"timed: replay sample, H2D, loss, backward, Adam, Polyak); critic_loss {m.get('critic_loss')}, alpha "
+              f"{m.get('alpha')}, episode_reward_mean {m.get('episode_reward_mean')}")
+        if not first or not _finite(m, "critic_loss") or not len(act_s) == c["sac_iters"] * steps - 1500:
+            failures.append(f"sac: first update {bool(first)}, {len(act_s)} acting steps, metrics {m}")
+        res["sac"] = {"iteration_s": iters, "env_steps_per_s": [steps / x for x in iters],
+                      "act_ms": float(np.median(act_s)) * 1e3, "update_ms": upd_ms, "first_update": first,
+                      "critic_loss": m.get("critic_loss")}
+    finally:
+        algo.cleanup()
+    marks["sac_s"] = time.perf_counter() - t_sec
+
+    # ---- (h2) TD3 at its defaults: the actor and the targets move only on delayed steps ----
+    t_sec = time.perf_counter()
+    algo = TD3Config().environment("Pendulum-v1").resources(device=device).debugging(seed=0).build()
+    seen = []
+    try:
+        real_step = algo.train_step
+
+        def checked_step(batch, update_actor, noise=None):
+            if len(seen) < c["delay_checked"]:
+                before = [x.detach().clone() for x in tree_leaves(algo.params["actor"]) + tree_leaves(algo.target)]
+                mu = [x.clone() for x in algo.opt["actor"].mu]
+                m = real_step(batch, update_actor, noise)
+                after = tree_leaves(algo.params["actor"]) + tree_leaves(algo.target)
+                moved = [not torch.equal(a.detach(), b) for a, b in zip(after, before)]
+                mu_moved = any(not torch.equal(a, b) for a, b in zip(algo.opt["actor"].mu, mu))
+                seen.append((algo._updates, bool(update_actor), all(moved), any(moved), mu_moved))
+                return m
+            return real_step(batch, update_actor, noise)
+
+        algo.train_step = checked_step
+        iters = []
+        for _ in range(c["td3_iters"]):
+            t = time.perf_counter()
+            m = algo.step()
+            iters.append(time.perf_counter() - t)
+        upd_ms = _timed_updates(torch, cuda, lambda: real_step(algo.buffer.sample(256), True), c["timed_updates"])
+        ok = all(a == (u % 2 == 0) and ((all_m and mu_m) if a else not (any_m or mu_m))
+                 for u, a, all_m, any_m, mu_m in seen)
+        print(f"td3 on {card}: {c['td3_iters']} iterations in {[round(x, 2) for x in iters]} s, {algo._updates} "
+              f"updates (policy_delay 2); the first {len(seen)} updates (number, actor step, every actor and target "
+              f"leaf moved, any moved, actor moments moved): {seen}; {upd_ms:.2f} ms an update with the actor step; "
+              f"critic_loss {m.get('critic_loss')}")
+        if not ok or len(seen) < c["delay_checked"] or not _finite(m, "critic_loss"):
+            failures.append(f"td3: the delay did not hold: {seen}, metrics {m}")
+        res["td3"] = {"iteration_s": iters, "updates": algo._updates, "update_ms": upd_ms, "delay_held": ok,
+                      "critic_loss": m.get("critic_loss")}
+    finally:
+        algo.cleanup()
+    marks["td3_s"] = time.perf_counter() - t_sec
+
+    # ---- (h3) CQL at its defaults on a Pendulum dataset ----
+    t_sec = time.perf_counter()
+    path = os.path.join(scratch, "cql_pendulum")
+    rows = _offline_data(path, "Pendulum-v1", c["cql_rows"], 0)
+    cql_cfg = lambda: CQLConfig().environment("Pendulum-v1").offline_data(input_=path).debugging(seed=0)  # noqa: E731
+    algo = cql_cfg().resources(device=device).build()
+    first = {}
+    try:
+        real_update = algo.update
+
+        def checked_cql(batch, draws=None):
+            if not first:
+                draws = algo._update_draws(batch[OBS].shape[0])
+                cpu = twin(cql_cfg(), algo)
+                cfg = algo._algo_config
+                kw = dict(discrete=False, action_dim=algo.action_dim, gamma=cfg.gamma, cql_alpha=cfg.cql_alpha,
+                          n_cql=cfg.num_cql_actions, target_entropy=algo.target_entropy)
+
+                def control():
+                    total, _ = cql_loss(algo.params, algo.target, batch, draws, **kw)
+                    return torch.autograd.grad(total, tree_leaves(algo.params))
+
+                first.update(_held_to_cpu(torch, A, "cql", lambda: algo.loss_and_grads(batch, draws),
+                                          lambda: cpu.loss_and_grads(on_cpu(batch), on_cpu(draws)), control, cuda,
+                                          failures))
+            return real_update(batch, draws)
+
+        algo.update = checked_cql
+        t = time.perf_counter()
+        m = algo.step()
+        it_s = time.perf_counter() - t
+        upd_ms = _timed_updates(torch, cuda, lambda: real_update(algo.read_batch(algo.reader.next(256))),
+                                c["timed_updates"])
+        print(f"cql on {card} ({rows} rows of Pendulum-v1, hiddens (256, 256), batch 256, 4 sampled actions): "
+              f"1 iteration of 200 updates in {it_s:.2f} s; {upd_ms:.2f} ms an update (reader batch, H2D, loss, "
+              f"backward, Adam, Polyak); bellman_loss {m.get('bellman_loss')}, cql_term {m.get('cql_term')}")
+        if not first or not _finite(m, "bellman_loss") or not _finite(m, "cql_term"):
+            failures.append(f"cql: first update {bool(first)}, metrics {m}")
+        res["cql"] = {"iteration_s": it_s, "update_ms": upd_ms, "first_update": first,
+                      "bellman_loss": m.get("bellman_loss"), "cql_term": m.get("cql_term")}
+    finally:
+        algo.cleanup()
+    marks["cql_s"] = time.perf_counter() - t_sec
+
+    # ---- (h4) CRR (exp weights) on offline CartPole ----
+    t_sec = time.perf_counter()
+    path = os.path.join(scratch, "crr_cartpole")
+    rows = _offline_data(path, "CartPole-v1", c["crr_rows"], 0, expert_share=0.6)
+    algo = (CRRConfig().environment("CartPole-v1").offline_data(input_=path)
+            .training(weight_type="exp").resources(device=device).debugging(seed=0).build())
+    try:
+        t = time.perf_counter()
+        m = algo.step()
+        it_s = time.perf_counter() - t
+        upd_ms = _timed_updates(torch, cuda, lambda: algo.update(algo.read_batch(algo.reader.next(256))),
+                                c["timed_updates"])
+        from ray_tpu_torch.rllib.env import make
+
+        env, rewards = make("CartPole-v1"), []
+        for ep in range(5):
+            obs, _ = env.reset(seed=100 + ep)
+            total = 0.0
+            for _ in range(500):
+                obs, r, term, trunc, _ = env.step(algo.compute_single_action(obs))
+                total += r
+                if term or trunc:
+                    break
+            rewards.append(total)
+        print(f"crr on {card} ({rows} rows, 60% scripted expert; exp weights; hiddens (256, 256), batch 256): "
+              f"1 iteration of 200 updates in {it_s:.2f} s; {upd_ms:.2f} ms an update; critic_loss "
+              f"{m.get('critic_loss')}, actor_loss {m.get('actor_loss')}, mean_weight {m.get('mean_weight')}; "
+              f"greedy reward over 5 episodes {float(np.mean(rewards))}")
+        if not all(_finite(m, k) for k in ("critic_loss", "actor_loss", "total_loss")):
+            failures.append(f"crr: metrics {m}")
+        res["crr"] = {"iteration_s": it_s, "update_ms": upd_ms, "reward": float(np.mean(rewards)),
+                      "total_loss": m.get("total_loss")}
+    finally:
+        algo.cleanup()
+    marks["crr_s"] = time.perf_counter() - t_sec
+
+    # ---- (h5) Ape-X DDPG: 2 explorers pinned to the host, the learner on the card ----
+    t_sec = time.perf_counter()
+    algo = ApexDDPGConfig().environment("Pendulum-v1").resources(device=device).debugging(seed=0).build()
+    weighted = {}
+    try:
+        build_s = time.perf_counter() - t_sec
+        real_step = algo.train_step
+
+        def checked_apex(batch, update_actor, noise=None):
+            # The first learner step whose importance weights are not all
+            # equal (the shards' priorities have moved): its weighted critic
+            # loss, TD errors and gradients on the card against the CPU's.
+            if not weighted and np.ptp(np.asarray(batch["weights"])) > 0:
+                cfg = algo._algo_config
+                kw = dict(gamma=cfg.gamma, twin_q=cfg.twin_q, smooth=False, target_noise=0.0, noise_clip=0.0)
+
+                def run(params, target, b):
+                    critic = {k: params[k] for k in algo._critic_keys}
+                    loss, td, _ = ddpg_critic_loss(critic, target, b, None, weights=b["weights"], **kw)
+                    return ({"critic_loss": loss, "td_abs_sum": td.abs().sum()},
+                            torch.autograd.grad(loss, tree_leaves(critic)))
+
+                def on_card():
+                    with full_f32(algo.device):
+                        return run(algo.params, algo.target, to_device(batch, algo.device))
+
+                def on_host():
+                    cpu = torch.device("cpu")
+                    return run(trainable(ddpg_params_from_jax(host_tree(algo.params), device=cpu), cpu),
+                               ddpg_params_from_jax(host_tree(algo.target), device=cpu), to_device(batch, cpu))
+
+                weighted.update(_held_to_cpu(torch, A, "apex_ddpg weighted", on_card, on_host,
+                                             lambda: run(algo.params, algo.target, to_device(batch, algo.device))[1],
+                                             cuda, failures))
+            return real_step(batch, update_actor, noise)
+
+        algo.train_step = checked_apex
+        iters = []
+        for _ in range(c["apex_iters"]):
+            t = time.perf_counter()
+            m = algo.step()
+            iters.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        algo.sync_worker_weights()
+        sync_ms = (time.perf_counter() - t) * 1e3
+        want = weights_checksum(algo.params)
+        got = rt.get([w.weights_checksum.remote() for w in algo.workers], timeout=60)
+        print(f"apex_ddpg on {card}: built in {build_s:.2f} s (2 explorers, 2 shards), {c['apex_iters']} iterations "
+              f"in {[round(x, 2) for x in iters]} s, {algo._timesteps_total} env steps, {algo._updates} updates on "
+              f"{algo.params['actor'][0]['w'].device}; a sync {sync_ms:.2f} ms; explorers bit-equal to the learner "
+              f"{[g == want for g in got]}; critic_loss {m.get('critic_loss')}, replay {m.get('replay_size')}")
+        if not got or any(g != want for g in got) or not algo._updates or not _finite(m, "critic_loss"):
+            failures.append(f"apex_ddpg: checksums {got} vs {want}, {algo._updates} updates, metrics {m}")
+        if not weighted:
+            failures.append("apex_ddpg: no learner step had non-uniform importance weights")
+        res["apex_ddpg"] = {"build_s": build_s, "iteration_s": iters, "updates": algo._updates, "sync_ms": sync_ms,
+                            "bit_equal": all(g == want for g in got), "weighted_step": weighted}
+    finally:
+        algo.cleanup()
+    marks["apex_ddpg_s"] = time.perf_counter() - t_sec
+
+    # ---- (h6) MADDPG on the 2-agent spread: its first update against the CPU ----
+    t_sec = time.perf_counter()
+    Spread1D = _spread_env_class()
+    ma_cfg = lambda: MADDPGConfig().environment(Spread1D).debugging(seed=0)  # noqa: E731
+    algo = ma_cfg().resources(device=device).build()
+    first = {}
+    try:
+        real_update = algo.update
+
+        def checked_maddpg(batch):
+            if not first:
+                cpu = twin(ma_cfg(), algo, ("params", "target_params"))
+                tb = {k: torch.from_numpy(np.require(v, np.float32, "W")).to(algo.device) for k, v in batch.items()}
+
+                def control():
+                    total, _ = maddpg_loss(algo.params, algo.target_params, tb, gamma=algo._algo_config.gamma)
+                    return torch.autograd.grad(total, tree_leaves(algo.params["actor"])
+                                               + tree_leaves(algo.params["critic"]))
+
+                def run(a, b):
+                    total, aux, ga, gc = a.loss_and_grads(b)
+                    return dict(aux, total_loss=total), ga + gc
+
+                first.update(_held_to_cpu(torch, A, "maddpg", lambda: run(algo, tb), lambda: run(cpu, on_cpu(tb)),
+                                          control, cuda, failures))
+                cpu.cleanup()
+            return real_update(batch)
+
+        algo.update = checked_maddpg
+        iters = []
+        for _ in range(c["maddpg_iters"]):
+            t = time.perf_counter()
+            m = algo.step()
+            iters.append(time.perf_counter() - t)
+        upd_ms = _timed_updates(torch, cuda, lambda: real_update(algo.buffer.sample(256)), c["timed_updates"])
+        print(f"maddpg on {card} (2 agents, hiddens (64, 64), batch 256): {c['maddpg_iters']} iterations in "
+              f"{[round(x, 2) for x in iters]} s, {algo._updates} updates; {upd_ms:.2f} ms an update; metrics {m}")
+        if not first or not algo._updates or not _finite(m, "total_loss"):
+            failures.append(f"maddpg: first update {bool(first)}, {algo._updates} updates, metrics {m}")
+        res["maddpg"] = {"iteration_s": iters, "updates": algo._updates, "update_ms": upd_ms, "first_update": first}
+    finally:
+        algo.cleanup()
+    marks["maddpg_s"] = time.perf_counter() - t_sec
+    res["sections_s"] = marks
+    return res
+
+
 def rllib_phase(torch, card, device="cuda", sizes=None):
     """RLlib on the card (phase 15): (a) PPO on CartPole-v1, CPU rollout
     workers and one learner actor holding the card; (b) the learner at the
@@ -3210,14 +3691,19 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
                       "first_minibatch_rel": {k: r for k, (r, _) in first.items()}, "weights_equal_after_round": w_equal,
                       "learner": learner_info}
         marks["ppo_s"] = time.perf_counter() - t_ppo
-        # (d)-(g) in the same cluster; they launch none of the flash kernels.
+        # (d)-(h) in the same cluster; they launch none of the flash kernels.
         t = time.perf_counter()
         A.reset_launch_counts()
         res["families"] = rllib_families(torch, rt, card, device, failures)
+        dg_counts = A.launch_counts()
+        res["continuous"] = rllib_continuous(torch, rt, card, device, failures, scratch)
         family_counts = A.launch_counts()
-        print(f"rllib families: flash kernel launches in this process over sections (d)-(g): {family_counts}")
+        h_counts = {k: family_counts[k] - dg_counts[k] for k in family_counts}
+        print(f"rllib families: flash kernel launches in this process over sections (d)-(g): {dg_counts}, over "
+              f"(h): {h_counts}")
         if any(family_counts.values()):
-            failures.append(f"rllib families: the value and policy-gradient paths launched {family_counts}")
+            failures.append(f"rllib families: the value, policy-gradient and continuous paths launched "
+                            f"{family_counts}")
         pids |= {w.pid for w in rt._global_node.raylet.workers.values() if w.pid}
         marks["families_s"] = time.perf_counter() - t
     finally:

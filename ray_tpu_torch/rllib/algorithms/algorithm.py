@@ -15,6 +15,7 @@ no card).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from typing import Optional, Type
@@ -30,6 +31,20 @@ from ray_tpu_torch.tune.trainable import Trainable
 # configured name with its own number, so two live Algorithms in one driver
 # never share a group.
 _WEIGHT_GROUP_SEQ = itertools.count(1)
+
+
+@contextlib.contextmanager
+def probe_env(cfg):
+    """A probe of ``cfg.env`` (an id through the port's ``make``, or the
+    env class called with ``cfg.env_config``) for reading its spaces, closed
+    on exit."""
+    from ray_tpu_torch.rllib.env.cartpole import make
+
+    probe = make(cfg.env) if isinstance(cfg.env, str) else cfg.env(dict(cfg.env_config))
+    try:
+        yield probe
+    finally:
+        probe.close()
 
 
 class AlgorithmConfig:
@@ -368,15 +383,11 @@ class Algorithm(Trainable):
     @staticmethod
     def _spec_from_env(cfg: AlgorithmConfig):
         """The RLModuleSpec for ``cfg.env``'s spaces and ``cfg``'s model
-        config, from a probe env made and closed here."""
-        from ray_tpu_torch.rllib.env.cartpole import make
+        config, from the probe env."""
         from ray_tpu_torch.rllib.models import ModelCatalog
 
-        probe = make(cfg.env) if isinstance(cfg.env, str) else cfg.env(dict(cfg.env_config))
-        try:
+        with probe_env(cfg) as probe:
             return ModelCatalog.get_model_spec(probe.observation_space, probe.action_space, cfg.model_config())
-        finally:
-            probe.close()
 
     def _setup_device_weight_sync(self, cfg) -> None:
         """Form the learner<->sampler weight group (Podracer topology): the

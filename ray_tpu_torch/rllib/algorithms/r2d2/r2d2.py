@@ -27,7 +27,7 @@ import torch
 
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.core.learner import OptaxChain, full_f32, global_norm
-from ray_tpu_torch.rllib.core.rl_module import _device, tree_leaves, tree_map
+from ray_tpu_torch.rllib.core.rl_module import _device, copy_into, host_tree, tree_leaves, tree_map
 from ray_tpu_torch.rllib.env.vector_env import VectorEnv
 
 _LAYERS = ("enc", "gru_z", "gru_r", "gru_h", "val", "adv")
@@ -210,10 +210,6 @@ class R2D2Config(AlgorithmConfig):
         return self
 
 
-def _host(tree) -> dict:
-    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
-
-
 class R2D2(Algorithm):
     @classmethod
     def get_default_config(cls) -> R2D2Config:
@@ -250,14 +246,12 @@ class R2D2(Algorithm):
     def get_weights(self) -> dict:
         """The online network's weights (a numpy tree, the reference's
         layout)."""
-        return _host(self.params)
+        return host_tree(self.params)
 
-    @torch.no_grad()
     def set_weights(self, weights: dict) -> None:
         """Copy a params tree (numpy or tensors) into the online network,
         in place (the optimizer keeps its hold on the tensors)."""
-        for p, v in zip(tree_leaves(self.params), tree_leaves(weights)):
-            p.copy_(v if isinstance(v, torch.Tensor) else torch.from_numpy(np.require(v, np.float32, "W")))
+        copy_into(self.params, weights)
 
     @torch.no_grad()
     def _act(self, obs: np.ndarray, h: np.ndarray):
@@ -428,7 +422,7 @@ class R2D2(Algorithm):
 
         return Checkpoint.from_dict({
             "params": self.get_weights(),
-            "target": _host(self.target_params),
+            "target": host_tree(self.target_params),
             "opt_state": self.opt.state_dict(),
             "timesteps": self._timesteps_total,
             "updates": self._updates,

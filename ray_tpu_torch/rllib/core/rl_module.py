@@ -312,6 +312,19 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def host_tree(tree):
+    """A tree of tensors as numpy copies (the JAX package's layout)."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+@torch.no_grad()
+def copy_into(tree, values) -> None:
+    """Copy a tree of numpy arrays or tensors into ``tree``'s tensors in
+    place, leaf for leaf (an optimizer keeps its hold on them)."""
+    for p, v in zip(tree_leaves(tree), tree_leaves(values)):
+        p.copy_(v if isinstance(v, torch.Tensor) else torch.from_numpy(np.require(v, np.float32, "W")))
+
+
 def tree_unflatten_like(template, leaves: list):
     """Rebuild ``template``'s structure with ``leaves`` in
     :func:`tree_leaves` order."""

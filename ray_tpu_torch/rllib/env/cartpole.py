@@ -144,13 +144,20 @@ class CartPoleEnv:
         pass
 
 
-ENV_IDS = {"CartPole-v1": lambda: CartPoleEnv(max_episode_steps=500)}
+def _pendulum():
+    from ray_tpu_torch.rllib.env.pendulum import PendulumEnv
+
+    return PendulumEnv(max_episode_steps=200)
+
+
+ENV_IDS = {"CartPole-v1": lambda: CartPoleEnv(max_episode_steps=500), "Pendulum-v1": _pendulum}
 
 
 def make(env_id: str):
-    """The env for a gymnasium id. ``CartPole-v1`` is always the port's own;
-    any other id goes to ``gymnasium.make`` (imported here), which raises
-    ``ImportError`` naming the package and the id where gymnasium is absent."""
+    """The env for a gymnasium id. ``CartPole-v1`` and ``Pendulum-v1``
+    (``env/pendulum.py``) are always the port's own; any other id goes to
+    ``gymnasium.make`` (imported here), which raises ``ImportError`` naming
+    the package and the id where gymnasium is absent."""
     if env_id in ENV_IDS:
         return ENV_IDS[env_id]()
     try:

@@ -5,8 +5,8 @@ gymnasium API. Environments step on CPU rollout actors; the learner never
 touches them — the same split as the reference (env stepping on CPU actors,
 SGD on accelerator learners, §3.6 of the survey).
 
-An env id goes through ``env.cartpole.make``: ``CartPole-v1`` is the port's
-own numpy env, any other id needs gymnasium.
+An env id goes through ``env.cartpole.make``: ``CartPole-v1`` and
+``Pendulum-v1`` are the port's own numpy envs, any other id needs gymnasium.
 """
 
 from __future__ import annotations
@@ -226,11 +226,12 @@ class MultiAgentVectorEnv:
 
 def make_vector_env(env_spec, num_envs: int, config: Optional[dict] = None,
                     worker_index: int = 0, seed: Optional[int] = None):
-    """VectorEnv for gym envs, MultiAgentVectorEnv for multi-agent envs
-    (probed by building one instance: a multi-agent env lists its
-    ``possible_agents``)."""
+    """VectorEnv for gym envs, MultiAgentVectorEnv for MultiAgentEnvs
+    (probed by building one instance)."""
+    from ray_tpu_torch.rllib.env.multi_agent_env import MultiAgentEnv
+
     probe = _make_env(env_spec, EnvContext(config or {}, worker_index, 0))
-    is_multi = hasattr(probe, "possible_agents")
+    is_multi = isinstance(probe, MultiAgentEnv)
     try:
         probe.close()
     except Exception:

@@ -38,7 +38,11 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.rllib.algorithms.a2c.a2c, ray_tpu_torch.rllib.algorithms.a3c.a3c, "
         "ray_tpu_torch.rllib.algorithms.ddppo.ddppo, ray_tpu_torch.rllib.algorithms.dqn.dqn, "
         "ray_tpu_torch.rllib.algorithms.simple_q.simple_q, ray_tpu_torch.rllib.algorithms.apex_dqn.apex_dqn, "
-        "ray_tpu_torch.rllib.algorithms.r2d2.r2d2\n"
+        "ray_tpu_torch.rllib.algorithms.r2d2.r2d2, ray_tpu_torch.rllib.algorithms.off_policy, "
+        "ray_tpu_torch.rllib.algorithms.sac.sac, ray_tpu_torch.rllib.algorithms.ddpg.ddpg, "
+        "ray_tpu_torch.rllib.algorithms.cql.cql, ray_tpu_torch.rllib.algorithms.crr.crr, "
+        "ray_tpu_torch.rllib.algorithms.apex_ddpg.apex_ddpg, ray_tpu_torch.rllib.algorithms.maddpg.maddpg, "
+        "ray_tpu_torch.rllib.env.pendulum, ray_tpu_torch.rllib.env.multi_agent_env\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -90,7 +94,10 @@ def test_no_source_imports_jax_or_ray_tpu():
                    "rllib/algorithms/pg/pg.py", "rllib/algorithms/a2c/a2c.py", "rllib/algorithms/a3c/a3c.py",
                    "rllib/algorithms/ddppo/ddppo.py", "rllib/algorithms/dqn/dqn.py",
                    "rllib/algorithms/simple_q/simple_q.py", "rllib/algorithms/apex_dqn/apex_dqn.py",
-                   "rllib/algorithms/r2d2/r2d2.py"):
+                   "rllib/algorithms/r2d2/r2d2.py", "rllib/algorithms/off_policy.py", "rllib/algorithms/sac/sac.py",
+                   "rllib/algorithms/ddpg/ddpg.py", "rllib/algorithms/cql/cql.py", "rllib/algorithms/crr/crr.py",
+                   "rllib/algorithms/apex_ddpg/apex_ddpg.py", "rllib/algorithms/maddpg/maddpg.py",
+                   "rllib/env/pendulum.py", "rllib/env/multi_agent_env.py"):
         assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -157,8 +164,8 @@ def test_data_and_predictors_need_neither_pyarrow_nor_pandas():
 def test_rllib_needs_no_gymnasium():
     """The card's machine need not have gymnasium: no module of the port
     imports it at module level, and with it blocked RLlib imports, builds its
-    own CartPole-v1 and its spaces, and names the package for any other env
-    id."""
+    own CartPole-v1, Pendulum-v1 and its spaces, and names the package for
+    any other env id."""
     for path in sorted((ROOT / "ray_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
@@ -175,16 +182,20 @@ def test_rllib_needs_no_gymnasium():
         "obs, _ = env.reset(seed=0)\n"
         "spec = RLModuleSpec.from_spaces(env.observation_space, env.action_space)\n"
         "assert obs.shape == (4,) and spec.action_dim == 2 and spec.discrete\n"
+        "env = make('Pendulum-v1')\n"
+        "obs, _ = env.reset(seed=0)\n"
+        "spec = RLModuleSpec.from_spaces(env.observation_space, env.action_space)\n"
+        "assert obs.shape == (3,) and spec.action_dim == 1 and not spec.discrete\n"
         "try:\n"
-        "    make('Pendulum-v1')\n"
+        "    make('Acrobot-v1')\n"
         "except ImportError as e:\n"
         "    print(e)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == ("env 'Pendulum-v1' needs the 'gymnasium' package, which is not installed "
-                                  "(the port carries its own ['CartPole-v1'] only)")
+    assert out.stdout.strip() == ("env 'Acrobot-v1' needs the 'gymnasium' package, which is not installed "
+                                  "(the port carries its own ['CartPole-v1', 'Pendulum-v1'] only)")
 
 
 def test_rllib_exports_exactly_the_ported_algorithms():
@@ -192,13 +203,15 @@ def test_rllib_exports_exactly_the_ported_algorithms():
     nothing of the JAX package's that is not ported."""
     import ray_tpu_torch.rllib as trl
 
-    ported = ["A2C", "A3C", "APPO", "ApexDQN", "DDPPO", "DQN", "DT", "IMPALA", "PG", "PPO", "R2D2", "SimpleQ"]
+    ported = ["A2C", "A3C", "APPO", "ApexDDPG", "ApexDQN", "CQL", "CRR", "DDPG", "DDPPO", "DQN", "DT", "IMPALA",
+              "MADDPG", "PG", "PPO", "R2D2", "SAC", "SimpleQ", "TD3"]
     configs = sorted(n[: -len("Config")] for n in dir(trl) if n.endswith("Config") and n != "AlgorithmConfig")
     assert configs == sorted(ported)
     for name in ported:
         assert issubclass(getattr(trl, name), trl.Algorithm)
         assert getattr(trl, f"{name}Config")().algo_class is getattr(trl, name)
-    for name in ("SAC", "DDPG", "TD3", "CQL", "MARWIL", "BC", "ES", "ARS", "QMIX", "MADDPG", "AlphaZero"):
+    assert trl.MultiAgentEnv is trl.env.multi_agent_env.MultiAgentEnv and callable(trl.make_multi_agent)
+    for name in ("MARWIL", "BC", "ES", "ARS", "QMIX", "SlateQ", "AlphaZero", "ExternalEnv", "PolicyClient"):
         assert not hasattr(trl, name), name
 
 
@@ -332,6 +345,36 @@ def test_entry_points_raise_without_a_card():
     for config in (DQNConfig, R2D2Config, ApexDQNConfig, A3CConfig, DDPPOConfig):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             config().environment("CartPole-v1").build()
+    # The continuous family: parameters, targets, updates and the acting
+    # forward on the card; each raises before it makes an env, reads data or
+    # starts an explorer.
+    from ray_tpu_torch.rllib import (
+        ApexDDPGConfig,
+        CQLConfig,
+        CRRConfig,
+        DDPGConfig,
+        MADDPGConfig,
+        MultiAgentEnv,
+        SACConfig,
+        TD3Config,
+    )
+
+    class TwoAgents(MultiAgentEnv):
+        possible_agents = ["a", "b"]
+        observation_space = Box(-1.0, 1.0, (2,))
+        action_space = Box(-1.0, 1.0, (1,))
+
+        def __init__(self, config=None):
+            pass
+
+    for config in (SACConfig, DDPGConfig, TD3Config, ApexDDPGConfig):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            config().environment("Pendulum-v1").build()
+    for config in (CQLConfig, CRRConfig):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            config().environment("Pendulum-v1").offline_data(input_="unused").build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MADDPGConfig().environment(TwoAgents).build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Policy.from_spaces(Box(-1.0, 1.0, (4,)), Discrete(2))
 

@@ -392,11 +392,12 @@ def test_other_env_ids_need_gymnasium(monkeypatch):
 
     from ray_tpu_torch.rllib.env import make
 
-    assert make("Pendulum-v1").observation_space.shape == (3,)  # gymnasium's, here
+    assert make("Acrobot-v1").observation_space.shape == (6,)  # gymnasium's, here
     monkeypatch.setitem(sys.modules, "gymnasium", None)
-    with pytest.raises(ImportError, match="'Pendulum-v1' needs the 'gymnasium' package"):
-        make("Pendulum-v1")
+    with pytest.raises(ImportError, match="'Acrobot-v1' needs the 'gymnasium' package"):
+        make("Acrobot-v1")
     assert make("CartPole-v1").action_space.n == 2
+    assert make("Pendulum-v1").observation_space.shape == (3,)  # the port's own
 
 
 def test_spaces_match_gymnasium():
