@@ -254,8 +254,18 @@ line:
    importance weights (its weighted critic loss, TD errors and gradients)
    held to the CPU's likewise, the explorers' packed weights hashing to the
    learner's after a sync; MADDPG on a 2-agent 1-D spread for 2 iterations,
-   its first update held to the CPU's likewise. Every flash launch in this
-   process over (d)-(h) is counted: the kernels line's rows carry the count
+   its first update held to the CPU's likewise. (i) The model-based and
+   meta-learning family at each config's defaults (RLLIB_MODEL_BASED):
+   DreamerV3 on Pendulum-v1 and on CartPole-v1 for 3 iterations (env steps/s,
+   ms acting a step, ms an update by CUDA events), its first update on the
+   card held to the same update on the CPU from the same weights, batch and
+   draws (the metrics, the world model's, actor's and critic's gradients;
+   TF32 control); MAML on PointGoalEnv with 2 CPU rollout actors, its first
+   second-order meta-update held to the CPU's likewise, ms a meta-update;
+   MBMPO, its first ensemble update held likewise, one imagined rollout
+   against the CPU's within RLLIB_ATARI_GRAD_RTOL, ms an ensemble update and
+   an imagined batch; a "(i): {...}" line. Every flash launch in this
+   process over (d)-(i) is counted: the kernels line's rows carry the count
    as "rllib_families_launches" (0: these paths compute no attention).
 
 The line before the last is {"kernels": [...]}; the last is
@@ -438,6 +448,23 @@ RLLIB_FAMILIES = dict(podracer_iters=3, podracer_grow=4, atari_members=4, atari_
 # updates are timed after each run.
 RLLIB_CONTINUOUS = dict(sac_iters=2, td3_iters=2, cql_rows=2000, crr_rows=6000, apex_iters=2, maddpg_iters=2,
                         timed_updates=50, delay_checked=6)
+# The rllib phase's model-based and meta-learning section (i), in the same
+# cluster, each algorithm at its config's defaults: DreamerV3 (deter 128, 8x8
+# latents, hiddens (128,), batch 8 x 16, horizon 10; learning from 500 rows)
+# on Pendulum-v1 and on CartPole-v1 for `dreamer_iters` iterations of 250 env
+# steps (the third the first with updates), then `dreamer_timed` updates timed
+# with CUDA events; MAML on PointGoalEnv (meta-batch 10, 10 episodes a task,
+# 2 CPU rollout actors, 5 meta-updates an iteration) for `maml_iters`, then
+# `maml_timed` meta-updates timed; MBMPO (5 members of (64, 64), batch 256, 30
+# epochs) for `mbmpo_iters`, then `mbmpo_timed` ensemble updates and imagined
+# batches timed. DreamerV3's first update, MAML's first (second-order)
+# meta-update and MBMPO's first ensemble update on the card are held to the
+# same computation on the CPU (same weights, data and draws) at the Atari
+# check's bars with the TF32 control; one imagined MBMPO rollout (20 starts,
+# the horizon of 20) on the card against the CPU's within
+# RLLIB_ATARI_GRAD_RTOL (rel_l2 over its five columns).
+RLLIB_MODEL_BASED = dict(dreamer_iters=3, dreamer_timed=20, maml_iters=1, maml_timed=10, mbmpo_iters=1,
+                         mbmpo_timed=20)
 # The R2D2 update on the card against the CPU's (full f32 on both): the loss
 # within RLLIB_ATARI_RTOL and the gradients within RLLIB_ATARI_GRAD_RTOL, the
 # Atari check's bars.
@@ -3560,6 +3587,265 @@ def rllib_continuous(torch, rt, card, device, failures, scratch) -> dict:
     return res
 
 
+def _event_ms(torch, cuda, fn, n) -> float:
+    """ms a call over ``n`` calls of ``fn``: CUDA events around the calls on
+    the card (the host clock on the CPU)."""
+    if not cuda:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def rllib_model_based(torch, rt, card, device, failures) -> dict:
+    """Section (i) of the rllib phase, in its cluster: DreamerV3, MAML and
+    MBMPO at their defaults (RLLIB_MODEL_BASED). Returns their numbers;
+    appends to ``failures``."""
+    from unittest import mock
+
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib import DreamerV3Config, MAMLConfig, MBMPOConfig
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import dreamerv3 as dv3
+    from ray_tpu_torch.rllib.algorithms.maml import maml
+    from ray_tpu_torch.rllib.algorithms.mbmpo import mbmpo
+    from ray_tpu_torch.rllib.core.rl_module import copy_into, host_tree
+    from ray_tpu_torch.rllib.env import PointGoalEnv
+
+    c = RLLIB_MODEL_BASED
+    cuda = device == "cuda"
+    res, marks = {}, {}
+
+    def tf32_allowed(module):
+        """The module's update with its full-f32 scope taken away: TF32 as
+        the process has it (the control)."""
+        return mock.patch.object(module, "full_f32", lambda device: contextlib.nullcontext())
+
+    def on_cpu(tree):
+        return {k: (v.detach().cpu() if isinstance(v, torch.Tensor) else on_cpu(v)) for k, v in tree.items()}
+
+    # ---- (i1) DreamerV3 on Pendulum-v1 and CartPole-v1 at its defaults ----
+    for env in ("Pendulum-v1", "CartPole-v1"):
+        t_sec = time.perf_counter()
+        label = f"dreamerv3 {env}"
+        dv3_cfg = lambda res_device: (DreamerV3Config().environment(env)  # noqa: E731
+                                      .resources(device=res_device).debugging(seed=0))
+        algo = dv3_cfg(device).build()
+        first, act_s = {}, []
+        try:
+            real_update, real_act = algo.update, algo._act
+
+            def twin(res_device):
+                other = dv3_cfg(res_device).build()
+                for name in ("params", "actor_params", "critic_params", "critic_ema"):
+                    copy_into(getattr(other, name), host_tree(getattr(algo, name)))
+                other.return_scale = algo.return_scale.to(other.device)
+                return other
+
+            def checked_update(batch, draws=None):
+                if first:
+                    return real_update(batch, draws)
+                cfg = algo._algo_config
+                draws = algo._update_draws(cfg.batch_size, cfg.batch_length)
+                cpu, ctl = twin("cpu"), twin(device)
+
+                def control():
+                    with tf32_allowed(dv3):
+                        return ctl.train_step(batch, draws)[1]
+
+                out = {}
+
+                def on_card():
+                    out["m"], grads = algo.train_step(batch, draws)
+                    return out["m"], grads
+
+                first.update(_held_to_cpu(torch, A, label, on_card, lambda: cpu.train_step(batch, on_cpu(draws)),
+                                          control, cuda, failures))
+                cpu.cleanup()
+                ctl.cleanup()
+                return out["m"]
+
+            def timed_act(explore=True):
+                t = time.perf_counter()
+                out = real_act(explore)
+                act_s.append(time.perf_counter() - t)
+                return out
+
+            algo.update, algo._act = checked_update, timed_act
+            iters = []
+            for _ in range(c["dreamer_iters"]):
+                t = time.perf_counter()
+                m = algo.step()
+                iters.append(time.perf_counter() - t)
+            steps = algo._algo_config.rollout_steps_per_iter
+            cfg = algo._algo_config
+            n_run = algo._updates
+            batches = [algo.buffer.sample(cfg.batch_size, cfg.batch_length) for _ in range(c["dreamer_timed"])]
+            it = iter(batches)
+            upd_ms = _event_ms(torch, cuda, lambda: real_update(next(it)), c["dreamer_timed"])
+            a = algo.compute_single_action(np.zeros(algo.obs_dim, np.float32))
+            print(f"{label} on {card} (deter 128, 8x8 latents, hiddens (128,), batch 8x16, horizon 10): "
+                  f"{c['dreamer_iters']} iterations of {steps} env steps in {[round(x, 2) for x in iters]} s "
+                  f"({[round(steps / x) for x in iters]} env steps/s; {n_run} updates, from buffer row 500); "
+                  f"acting {np.median(act_s) * 1e3:.3f} ms median a step (the posterior and the actor on the card, "
+                  f"one read; {len(act_s)} steps); {upd_ms:.2f} ms an update ({c['dreamer_timed']} timed with CUDA "
+                  f"events, the replay batches sampled before: H2D, world loss over 16 steps, its backward and Adam, "
+                  f"10 imagined steps, the actor and critic backward and Adams, the EMA); metrics {m}; "
+                  f"compute_single_action(zeros) = {a}")
+            if not first or not _finite(m, "model_loss") or not _finite(m, "actor_loss") or not n_run:
+                failures.append(f"{label}: first update {bool(first)}, {n_run} updates, metrics {m}")
+            res[label] = {"iteration_s": iters, "env_steps_per_s": [steps / x for x in iters],
+                          "act_ms": float(np.median(act_s)) * 1e3, "update_ms": upd_ms, "updates": n_run,
+                          "first_update": first, "model_loss": m.get("model_loss"),
+                          "actor_loss": m.get("actor_loss")}
+        finally:
+            algo.cleanup()
+        marks[f"{label}_s"] = time.perf_counter() - t_sec
+
+    # ---- (i2) MAML on PointGoalEnv at its defaults: 2 CPU rollout actors ----
+    t_sec = time.perf_counter()
+    algo = MAMLConfig().environment(PointGoalEnv, env_config={"seed": 0}).resources(device=device) \
+        .debugging(seed=0).build()
+    first, stacks = {}, {}
+    try:
+        learner = algo.learner
+        real_meta = learner.meta_update
+
+        def checked_meta(pre, post):
+            if not first:
+                stacks.update(pre=pre, post=post)
+                cfg = algo._algo_config
+                cpu = cfg.meta_learner(algo.module_spec, "cpu")
+                cpu.module.load_params(learner.module.get_params())
+
+                def control():
+                    with tf32_allowed(maml):
+                        return learner.meta_loss_and_grads(pre, post)[1]
+
+                def run(lrn, a, b):
+                    loss, grads = lrn.meta_loss_and_grads(a, b)
+                    return {"meta_loss": loss}, grads
+
+                first.update(_held_to_cpu(torch, A, "maml meta-update (second order)",
+                                          lambda: run(learner, pre, post),
+                                          lambda: run(cpu, on_cpu(pre), on_cpu(post)), control, cuda, failures))
+            return real_meta(pre, post)
+
+        learner.meta_update = checked_meta
+        iters = []
+        for _ in range(c["maml_iters"]):
+            t = time.perf_counter()
+            m = algo.step()
+            iters.append(time.perf_counter() - t)
+        meta_ms = _event_ms(torch, cuda, lambda: real_meta(stacks["pre"], stacks["post"]), c["maml_timed"])
+        print(f"maml on {card} (PointGoalEnv, meta-batch 10, 10 episodes a task, 2 CPU rollout actors, hiddens "
+              f"(64, 64)): {c['maml_iters']} iterations in {[round(x, 2) for x in iters]} s (4000 env steps on the "
+              f"actors, 10 adaptations, 5 meta-updates each); {meta_ms:.2f} ms a second-order meta-update "
+              f"({c['maml_timed']} timed with CUDA events: 10 tasks, each an inner gradient with its graph, the "
+              f"outer loss, the gradient through both, Adam); metrics {m}")
+        if not first or not _finite(m, "meta_loss") or not _finite(m, "adaptation_delta"):
+            failures.append(f"maml: first meta-update {bool(first)}, metrics {m}")
+        res["maml"] = {"iteration_s": iters, "meta_update_ms": meta_ms, "first_meta_update": first,
+                       "meta_loss": m.get("meta_loss"), "adaptation_delta": m.get("adaptation_delta")}
+    finally:
+        algo.cleanup()
+    marks["maml_s"] = time.perf_counter() - t_sec
+
+    # ---- (i3) MBMPO on PointGoalEnv at its defaults ----
+    t_sec = time.perf_counter()
+    algo = MBMPOConfig().environment(PointGoalEnv, env_config={"seed": 0}).resources(device=device) \
+        .debugging(seed=0).build()
+    first = {}
+    try:
+        real_ens = algo.ensemble_update
+
+        def checked_ens(obs_k, act_k, nxt_k):
+            if not first:
+                cpu_dyn = [{k: v.detach().cpu().requires_grad_(True) for k, v in layer.items()}
+                           for layer in algo.dyn_params]
+
+                def run(dyn, o, a, n):
+                    losses, grads = mbmpo.ensemble_loss_and_grads(dyn, o, a, n)
+                    return {f"member_{i}_loss": x for i, x in enumerate(losses)}, grads
+
+                def on_card():
+                    with maml.full_f32(algo.device):
+                        return run(algo.dyn_params, obs_k, act_k, nxt_k)
+
+                first.update(_held_to_cpu(torch, A, "mbmpo ensemble update", on_card,
+                                          lambda: run(cpu_dyn, obs_k.cpu(), act_k.cpu(), nxt_k.cpu()),
+                                          lambda: run(algo.dyn_params, obs_k, act_k, nxt_k)[1], cuda, failures))
+            return real_ens(obs_k, act_k, nxt_k)
+
+        algo.ensemble_update = checked_ens
+        iters = []
+        for _ in range(c["mbmpo_iters"]):
+            t = time.perf_counter()
+            m = algo.step()
+            iters.append(time.perf_counter() - t)
+        # One imagined rollout from member 0 on the card against the CPU's.
+        B, H = 20, algo._horizon
+        starts = torch.from_numpy(algo._start_obs[:B]).to(algo.device)
+        noise = algo._noise(H, B, algo.act_dim)
+        theta = {k: p.detach() for k, p in algo.learner.params().items()}
+        model = algo._model_slice(0)
+        task = torch.as_tensor(np.asarray(algo.env.get_task(), np.float32))
+        cpu_module = algo._algo_config.meta_learner(algo.module_spec, "cpu").module
+        cpu_module.load_params(algo.learner.module.get_params())
+        flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            with maml.full_f32(algo.device):
+                got = mbmpo.imagine(algo.learner.module, theta, model, starts, noise, algo.reward)
+            want = mbmpo.imagine(cpu_module, on_cpu(theta), [on_cpu(layer) for layer in model], starts.cpu(),
+                                 noise.cpu(), lambda s, a, n: PointGoalEnv.reward_fn(s, a, n, task))
+            ctl = mbmpo.imagine(algo.learner.module, theta, model, starts, noise, algo.reward) if cuda else None
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+        def flat(cols):
+            return torch.cat([x.detach().reshape(-1).float().cpu() for x in cols])
+
+        gap = A.mismatch(flat(got), flat(want))
+        tf32 = A.mismatch(flat(ctl), flat(want)) if ctl is not None else None
+        print(f"mbmpo imagined rollout (member 0, {B} starts, horizon {H}) on the card against the CPU: rel_l2 "
+              f"{gap['rel_l2']:.1e} over obs, actions, rewards, logp, vf (bar {RLLIB_ATARI_GRAD_RTOL}); the TF32 "
+              f"control's rel_l2 {tf32['rel_l2'] if tf32 else float('nan'):.1e}")
+        if not gap["rel_l2"] <= RLLIB_ATARI_GRAD_RTOL:
+            failures.append(f"mbmpo: the imagined rollout on the card parts from the CPU's: {gap}")
+        n = len(algo._replay_obs)
+        idx = [algo._np_rng.integers(0, n, (5, 256)) for _ in range(c["mbmpo_timed"])]
+        cols = iter([[torch.from_numpy(col[i]).to(algo.device)
+                      for col in (algo._replay_obs, algo._replay_act, algo._replay_next)] for i in idx])
+        ens_ms = _event_ms(torch, cuda, lambda: real_ens(*next(cols)), c["mbmpo_timed"])
+        t = time.perf_counter()
+        for _ in range(c["mbmpo_timed"]):
+            algo._imagined_batch(theta, model)
+        imag_ms = (time.perf_counter() - t) / c["mbmpo_timed"] * 1e3
+        print(f"mbmpo on {card} (PointGoalEnv, 5 members of (64, 64), batch 256, 30 epochs, 20 real and 20 imagined "
+              f"episodes): {c['mbmpo_iters']} iterations in {[round(x, 2) for x in iters]} s; {ens_ms:.3f} ms an "
+              f"ensemble update ({c['mbmpo_timed']} timed with CUDA events: the 5 members' batched forward, backward "
+              f"and one Adam over the stacked leaves); {imag_ms:.2f} ms an imagined batch (host clock: 20 steps of "
+              f"the policy, its draw, the member and the reward on the card, the read, GAE on the host); metrics {m}")
+        if not first or not _finite(m, "meta_loss") or not _finite(m, "dynamics_loss"):
+            failures.append(f"mbmpo: first ensemble update {bool(first)}, metrics {m}")
+        res["mbmpo"] = {"iteration_s": iters, "ensemble_update_ms": ens_ms, "imagined_batch_ms": imag_ms,
+                        "first_ensemble_update": first, "imagined_rollout": gap, "imagined_rollout_tf32": tf32,
+                        "meta_loss": m.get("meta_loss"), "dynamics_loss": m.get("dynamics_loss")}
+    finally:
+        algo.cleanup()
+    marks["mbmpo_s"] = time.perf_counter() - t_sec
+    res["sections_s"] = marks
+    return res
+
+
 def rllib_phase(torch, card, device="cuda", sizes=None):
     """RLlib on the card (phase 15): (a) PPO on CartPole-v1, CPU rollout
     workers and one learner actor holding the card; (b) the learner at the
@@ -3697,12 +3983,19 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
         res["families"] = rllib_families(torch, rt, card, device, failures)
         dg_counts = A.launch_counts()
         res["continuous"] = rllib_continuous(torch, rt, card, device, failures, scratch)
+        h_end = A.launch_counts()
+        h_counts = {k: h_end[k] - dg_counts[k] for k in h_end}
+        t_i = time.perf_counter()
+        model_based = rllib_model_based(torch, rt, card, device, failures)
         family_counts = A.launch_counts()
-        h_counts = {k: family_counts[k] - dg_counts[k] for k in family_counts}
+        i_counts = {k: family_counts[k] - h_end[k] for k in family_counts}
+        model_based.update(rllib_families_launches=i_counts, section_s=time.perf_counter() - t_i)
+        res["model_based"] = model_based
+        print("(i): " + json.dumps(model_based))
         print(f"rllib families: flash kernel launches in this process over sections (d)-(g): {dg_counts}, over "
-              f"(h): {h_counts}")
+              f"(h): {h_counts}, over (i): {i_counts}")
         if any(family_counts.values()):
-            failures.append(f"rllib families: the value, policy-gradient and continuous paths launched "
+            failures.append(f"rllib families: the value, policy-gradient, continuous and model-based paths launched "
                             f"{family_counts}")
         pids |= {w.pid for w in rt._global_node.raylet.workers.values() if w.pid}
         marks["families_s"] = time.perf_counter() - t

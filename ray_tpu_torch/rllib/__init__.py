@@ -8,9 +8,11 @@ the Tune Trainable. The Decision Transformer's attention runs the port's
 flash-attention kernels.
 
 Ported so far (ROADMAP A13a-d, f and part of e): PPO, IMPALA, APPO, DT, PG,
-A2C, A3C, DD-PPO, DQN, SimpleQ, Ape-X DQN, R2D2, and the continuous family
-(SAC, DDPG, TD3, CQL, CRR, Ape-X DDPG, MADDPG) with the layers under them,
-the multi-agent env, the port's own Pendulum-v1, and the Podracer weight sync
+A2C, A3C, DD-PPO, DQN, SimpleQ, Ape-X DQN, R2D2, the continuous family
+(SAC, DDPG, TD3, CQL, CRR, Ape-X DDPG, MADDPG), and the model-based and
+meta-learning family (DreamerV3, MAML, MBMPO, with the task-settable
+``PointGoalEnv``) with the layers under them, the multi-agent env, the
+port's own Pendulum-v1, and the Podracer weight sync
 (``weight_sync="device_broadcast"``, ``grad_sync="device_allreduce"``). The
 JAX package's other algorithms and its external-env and policy-server modules
 are not exported here until they are ported.
@@ -27,9 +29,12 @@ from ray_tpu_torch.rllib.algorithms.crr import CRR, CRRConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.ddpg import DDPG, TD3, DDPGConfig, TD3Config  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.ddppo import DDPPO, DDPPOConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.dreamerv3 import DreamerV3, DreamerV3Config  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.dt import DT, DTConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.maddpg import MADDPG, MADDPGConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.maml import MAML, MAMLConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.mbmpo import MBMPO, MBMPOConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.pg import PG, PGConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.r2d2 import R2D2, R2D2Config  # noqa: F401

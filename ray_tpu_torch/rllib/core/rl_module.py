@@ -259,16 +259,29 @@ class RLModule(nn.Module):
     def action_logp_and_entropy(self, obs: torch.Tensor, actions: torch.Tensor):
         """Recompute logp/entropy/value for stored actions (training pass)."""
         pi_out, value = self(obs)
-        if self.spec.discrete:
-            logits = F.log_softmax(pi_out, dim=-1)
-            logp = logits.gather(1, actions.long()[:, None])[:, 0]
-            entropy = -torch.sum(torch.exp(logits) * logits, dim=-1)
-            return logp, entropy, value
-        log_std = self._log_std(pi_out)
-        logp = gaussian_logp(actions, pi_out, log_std)
-        entropy = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e), dim=-1) * torch.ones(
-            pi_out.shape[0], device=pi_out.device)
-        return logp, entropy, value
+        return _logp_and_entropy(self.spec, pi_out, self._log_std(pi_out), actions) + (value,)
+
+
+def action_logp_and_entropy_at(module: RLModule, params: dict, obs: torch.Tensor, actions: torch.Tensor):
+    """``module.action_logp_and_entropy`` with ``params`` (parameter name ->
+    tensor, as ``named_parameters`` names them) in place of the module's own
+    weights: a functional call, differentiable in ``params`` (the reference's
+    ``action_logp_and_entropy(params, ...)``)."""
+    pi_out, value = torch.func.functional_call(module, params, (obs,))
+    log_std = params["log_std"] if module.log_std is not None else module._log_std(pi_out)
+    return _logp_and_entropy(module.spec, pi_out, log_std, actions) + (value,)
+
+
+def _logp_and_entropy(spec: RLModuleSpec, pi_out, log_std, actions):
+    if spec.discrete:
+        logits = F.log_softmax(pi_out, dim=-1)
+        logp = logits.gather(1, actions.long()[:, None])[:, 0]
+        entropy = -torch.sum(torch.exp(logits) * logits, dim=-1)
+        return logp, entropy
+    logp = gaussian_logp(actions, pi_out, log_std)
+    entropy = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e), dim=-1) * torch.ones(
+        pi_out.shape[0], device=pi_out.device)
+    return logp, entropy
 
 
 def gaussian_logp(x, mean, log_std):

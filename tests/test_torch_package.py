@@ -42,7 +42,9 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.rllib.algorithms.sac.sac, ray_tpu_torch.rllib.algorithms.ddpg.ddpg, "
         "ray_tpu_torch.rllib.algorithms.cql.cql, ray_tpu_torch.rllib.algorithms.crr.crr, "
         "ray_tpu_torch.rllib.algorithms.apex_ddpg.apex_ddpg, ray_tpu_torch.rllib.algorithms.maddpg.maddpg, "
-        "ray_tpu_torch.rllib.env.pendulum, ray_tpu_torch.rllib.env.multi_agent_env\n"
+        "ray_tpu_torch.rllib.env.pendulum, ray_tpu_torch.rllib.env.multi_agent_env, "
+        "ray_tpu_torch.rllib.env.meta_env, ray_tpu_torch.rllib.algorithms.maml.maml, "
+        "ray_tpu_torch.rllib.algorithms.mbmpo.mbmpo, ray_tpu_torch.rllib.algorithms.dreamerv3.dreamerv3\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -97,7 +99,9 @@ def test_no_source_imports_jax_or_ray_tpu():
                    "rllib/algorithms/r2d2/r2d2.py", "rllib/algorithms/off_policy.py", "rllib/algorithms/sac/sac.py",
                    "rllib/algorithms/ddpg/ddpg.py", "rllib/algorithms/cql/cql.py", "rllib/algorithms/crr/crr.py",
                    "rllib/algorithms/apex_ddpg/apex_ddpg.py", "rllib/algorithms/maddpg/maddpg.py",
-                   "rllib/env/pendulum.py", "rllib/env/multi_agent_env.py"):
+                   "rllib/env/pendulum.py", "rllib/env/multi_agent_env.py", "rllib/env/meta_env.py",
+                   "rllib/algorithms/maml/maml.py", "rllib/algorithms/mbmpo/mbmpo.py",
+                   "rllib/algorithms/dreamerv3/dreamerv3.py"):
         assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -164,8 +168,9 @@ def test_data_and_predictors_need_neither_pyarrow_nor_pandas():
 def test_rllib_needs_no_gymnasium():
     """The card's machine need not have gymnasium: no module of the port
     imports it at module level, and with it blocked RLlib imports, builds its
-    own CartPole-v1, Pendulum-v1 and its spaces, and names the package for
-    any other env id."""
+    own CartPole-v1, Pendulum-v1, PointGoalEnv (its tensor reward and
+    dynamics) and its spaces, builds DreamerV3 and MBMPO on them, and names
+    the package for any other env id."""
     for path in sorted((ROOT / "ray_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
@@ -186,6 +191,20 @@ def test_rllib_needs_no_gymnasium():
         "obs, _ = env.reset(seed=0)\n"
         "spec = RLModuleSpec.from_spaces(env.observation_space, env.action_space)\n"
         "assert obs.shape == (3,) and spec.action_dim == 1 and not spec.discrete\n"
+        "import torch\n"
+        "from ray_tpu_torch.rllib import DreamerV3Config, MBMPOConfig\n"
+        "from ray_tpu_torch.rllib.env import PointGoalEnv\n"
+        "env = PointGoalEnv({'seed': 0})\n"
+        "obs, _ = env.reset()\n"
+        "env.set_task(env.sample_tasks(1)[0])\n"
+        "spec = RLModuleSpec.from_spaces(env.observation_space, env.action_space)\n"
+        "assert spec.action_dim == 2 and not spec.discrete and env.step(obs)[3] is False\n"
+        "nxt = PointGoalEnv.transition_fn(torch.zeros(1, 2), torch.ones(1, 2))\n"
+        "assert PointGoalEnv.reward_fn(None, None, nxt, torch.as_tensor(env.get_task())).shape == (1,)\n"
+        "algo = DreamerV3Config().environment('Pendulum-v1').resources(device='cpu').build()\n"
+        "algo.cleanup()\n"
+        "algo = MBMPOConfig().environment(PointGoalEnv).resources(device='cpu').build()\n"
+        "algo.cleanup()\n"
         "try:\n"
         "    make('Acrobot-v1')\n"
         "except ImportError as e:\n"
@@ -203,8 +222,8 @@ def test_rllib_exports_exactly_the_ported_algorithms():
     nothing of the JAX package's that is not ported."""
     import ray_tpu_torch.rllib as trl
 
-    ported = ["A2C", "A3C", "APPO", "ApexDDPG", "ApexDQN", "CQL", "CRR", "DDPG", "DDPPO", "DQN", "DT", "IMPALA",
-              "MADDPG", "PG", "PPO", "R2D2", "SAC", "SimpleQ", "TD3"]
+    ported = ["A2C", "A3C", "APPO", "ApexDDPG", "ApexDQN", "CQL", "CRR", "DDPG", "DDPPO", "DQN", "DT", "DreamerV3",
+              "IMPALA", "MADDPG", "MAML", "MBMPO", "PG", "PPO", "R2D2", "SAC", "SimpleQ", "TD3"]
     configs = sorted(n[: -len("Config")] for n in dir(trl) if n.endswith("Config") and n != "AlgorithmConfig")
     assert configs == sorted(ported)
     for name in ported:
@@ -375,6 +394,17 @@ def test_entry_points_raise_without_a_card():
             config().environment("Pendulum-v1").offline_data(input_="unused").build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MADDPGConfig().environment(TwoAgents).build()
+    # The model-based and meta-learning family: the world model, the
+    # meta-policy and the dynamics ensemble on the card; each raises before
+    # it makes an env or starts a rollout actor.
+    from ray_tpu_torch.rllib import DreamerV3Config, MAMLConfig, MBMPOConfig
+    from ray_tpu_torch.rllib.env import PointGoalEnv
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DreamerV3Config().environment("Pendulum-v1").build()
+    for config in (MAMLConfig, MBMPOConfig):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            config().environment(PointGoalEnv).build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Policy.from_spaces(Box(-1.0, 1.0, (4,)), Discrete(2))
 
