@@ -264,9 +264,23 @@ line:
    second-order meta-update held to the CPU's likewise, ms a meta-update;
    MBMPO, its first ensemble update held likewise, one imagined rollout
    against the CPU's within RLLIB_ATARI_GRAD_RTOL, ms an ensemble update and
-   an imagined batch; a "(i): {...}" line. Every flash launch in this
-   process over (d)-(i) is counted: the kernels line's rows carry the count
-   as "rllib_families_launches" (0: these paths compute no attention).
+   an imagined batch; a "(i): {...}" line. (j) The lighter algorithms at
+   the reference tests' configs (RLLIB_LIGHT): BC and MARWIL on
+   tests/test_rllib.py's offline data written by the port's JsonWriter, the
+   learner on the card, its first update held to the CPU's (TF32 control),
+   ms an update, the expert's action on 50 probes after 60 and 80
+   iterations (bars 45 and 40); QMIX on the two-step game, its first train
+   step held likewise, ms a train step, the best reward within 15 iterations
+   (bar 7.5); SlateQ on SlateRecEnv for 3 iterations, its first update held
+   likewise, one replay batch's greedy slates on the card against the CPU's
+   (near-ties counted, no other row may differ), ms an update and an acting
+   step; ES and ARS with 2 CPU worker actors pinned to the host for 2
+   iterations (s an iteration, env steps/s), compute_single_action on the card
+   against the CPU forward (equal actions, logits within RLLIB_ATARI_RTOL);
+   LinUCB and LinTS on a 2-arm context bandit in a process that sees no card
+   and cannot import gymnasium (mean reward > 0.8); a "(j): {...}" line. Every flash launch in
+   this process over (d)-(j) is counted: the kernels line's rows carry the
+   count as "rllib_families_launches" (0: these paths compute no attention).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
@@ -465,6 +479,25 @@ RLLIB_CONTINUOUS = dict(sac_iters=2, td3_iters=2, cql_rows=2000, crr_rows=6000, 
 # RLLIB_ATARI_GRAD_RTOL (rel_l2 over its five columns).
 RLLIB_MODEL_BASED = dict(dreamer_iters=3, dreamer_timed=20, maml_iters=1, maml_timed=10, mbmpo_iters=1,
                          mbmpo_timed=20)
+# The rllib phase's section (j), the lighter algorithms, in the same cluster at
+# the reference tests' configs: BC on 2,000 expert rows and MARWIL (beta 2) on
+# 3,000 mixed rows (tests/test_rllib.py), written by the port's JsonWriter,
+# for the reference's `bc_iters` and `marwil_iters` iterations; QMIX on the
+# two-step game (tests/test_rllib_multiagent.py) up to `qmix_iters`
+# iterations, stopping at its bar; SlateQ on SlateRecEnv
+# (tests/test_rllib_slateq.py) for `slateq_iters` iterations (updates from
+# step 400), then the greedy slates of `slate_rows` replay rows on the card
+# against the CPU's and `act_steps` greedy acting steps timed; ES and ARS on
+# CartPole-v1 (tests/test_rllib_algorithms.py, tests/test_rllib_ars_crr.py)
+# with 2 CPU worker actors each for `es_iters` iterations, then
+# compute_single_action on `act_obs` observations against the CPU forward;
+# LinUCB and LinTS on a 2-arm context bandit for `bandit_iters` iterations of
+# 200 steps. The first learner update of BC, MARWIL, QMIX and SlateQ on the
+# card is held to the same update on the CPU (same weights and batch) at the
+# Atari check's bars with the TF32 control; `timed_updates` updates of each
+# are timed with CUDA events after its run.
+RLLIB_LIGHT = dict(bc_iters=60, marwil_iters=80, qmix_iters=15, slateq_iters=3, slate_rows=256, act_steps=200,
+                   es_iters=2, act_obs=64, bandit_iters=5, timed_updates=20)
 # The R2D2 update on the card against the CPU's (full f32 on both): the loss
 # within RLLIB_ATARI_RTOL and the gradients within RLLIB_ATARI_GRAD_RTOL, the
 # Atari check's bars.
@@ -3846,6 +3879,436 @@ def rllib_model_based(torch, rt, card, device, failures) -> dict:
     return res
 
 
+def _two_step_env_class():
+    """tests/test_rllib_multiagent.py's TwoStepGame on the port's
+    MultiAgentEnv and spaces: agent 0's first action picks the payoff matrix
+    of the second step; the optimum (8) needs a coordinated (1, 1), which
+    additive mixing cannot represent and QMIX's monotonic mixing can."""
+    from ray_tpu_torch.rllib import MultiAgentEnv
+    from ray_tpu_torch.rllib.env import Box, Discrete
+
+    class TwoStepGame(MultiAgentEnv):
+        possible_agents = ["a0", "a1"]
+        observation_space = Box(0.0, 1.0, (3,), np.float32)
+        action_space = Discrete(2)
+
+        def __init__(self, config=None):
+            self._state = 0
+
+        def _obs(self):
+            o = np.zeros(3, np.float32)
+            o[self._state] = 1.0
+            return {a: o.copy() for a in self.possible_agents}
+
+        def reset(self, *, seed=None):
+            self._state = 0
+            return self._obs(), {}
+
+        def step(self, action_dict):
+            if self._state == 0:
+                self._state = 1 if action_dict["a0"] == 0 else 2
+                return self._obs(), {a: 0.0 for a in self.possible_agents}, {"__all__": False}, {"__all__": False}, {}
+            r = 7.0 if self._state == 1 else float(np.array([[0.0, 1.0], [1.0, 8.0]])[action_dict["a0"],
+                                                                                      action_dict["a1"]])
+            return self._obs(), {a: r / 2 for a in self.possible_agents}, {"__all__": True}, {"__all__": False}, {}
+
+        def close(self):
+            pass
+
+    return TwoStepGame
+
+
+def _context_bandit_class():
+    """tests/test_cluster_launcher.py's 2-arm contextual bandit on the port's
+    spaces: arm 0 pays when ctx[0] > 0, else arm 1."""
+    from ray_tpu_torch.rllib.env import Box, Discrete
+
+    class ContextBandit:
+        observation_space = Box(-1, 1, (2,), np.float32)
+        action_space = Discrete(2)
+
+        def __init__(self, config=None):
+            self._rng = np.random.default_rng(0)
+            self._ctx = None
+
+        def _next(self):
+            self._ctx = self._rng.uniform(-1, 1, 2).astype(np.float32)
+            return self._ctx
+
+        def reset(self, *, seed=None, options=None):
+            return self._next(), {}
+
+        def step(self, action):
+            good = 0 if self._ctx[0] > 0 else 1
+            return self._next(), 1.0 if int(action) == good else 0.0, True, False, {}
+
+        def close(self):
+            pass
+
+    return ContextBandit
+
+
+def bandits_on_the_host(iters: int) -> dict:
+    """LinUCB and LinTS on the 2-arm context bandit, ``iters`` iterations of
+    200 steps each: the mean reward by iteration and the greedy arm for
+    ctx[0] = 0.9 and -0.9 (section (j) runs this in a process that sees no
+    card)."""
+    import torch
+
+    from ray_tpu_torch.rllib import BanditLinTS, BanditLinUCB
+
+    res = {}
+    for cls in (BanditLinUCB, BanditLinTS):
+        cfg = cls.get_default_config().environment(_context_bandit_class())
+        cfg.steps_per_iter = 200
+        algo = cfg.build()
+        try:
+            rewards = [algo.step()["mean_reward"] for _ in range(iters)]
+            greedy = [algo.compute_single_action(np.array([x, 0.0], np.float32)) for x in (0.9, -0.9)]
+        finally:
+            algo.cleanup()
+        res[cls.__name__] = {"mean_reward": rewards, "greedy": greedy}
+    return {"algorithms": res, "cuda_available": torch.cuda.is_available()}
+
+
+def _expert_rows(path: str, kind: str) -> int:
+    """tests/test_rllib.py's offline data through the port's JsonWriter: BC's
+    2,000 expert rows (action 1 iff obs[0] > 0, 100-step episodes) or
+    MARWIL's 3,000 one-step rows, half expert (reward 1) and half
+    anti-expert (reward 0). Returns the row count."""
+    from ray_tpu_torch.rllib.offline import JsonWriter
+    from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch
+
+    n = 2000 if kind == "bc" else 3000
+    rng = np.random.default_rng(0 if kind == "bc" else 1)
+    obs = rng.uniform(-1, 1, size=(n, 4)).astype(np.float32)
+    expert = (obs[:, 0] > 0).astype(np.int64)
+    if kind == "bc":
+        cols = {"actions": expert, "rewards": np.ones(n, np.float32), "dones": np.arange(n) % 100 == 99}
+    else:
+        follow = rng.uniform(size=n) < 0.5
+        cols = {"actions": np.where(follow, expert, 1 - expert),
+                "rewards": np.where(follow, 1.0, 0.0).astype(np.float32), "dones": np.ones(n, bool)}
+    writer = JsonWriter(path)
+    writer.write(SampleBatch({"obs": obs, **cols}))
+    writer.close()
+    return n
+
+
+def _f32_near_ties(scores: np.ndarray, k: int) -> np.ndarray:
+    """Rows of ``scores`` [B, C] where the k-th and (k+1)-th largest (or any
+    two of the top k + 1) lie within f32 rounding of each other: there the
+    card's and the CPU's sums may order them either way."""
+    top = -np.sort(-scores.astype(np.float64), axis=1)[:, : k + 1]
+    gaps = np.abs(np.diff(top, axis=1))
+    scale = np.maximum(np.abs(top[:, :-1]), np.abs(top[:, 1:]))
+    return np.any(gaps <= 8 * np.finfo(np.float32).eps * np.maximum(scale, 1e-30), axis=1)
+
+
+def rllib_lighter(torch, rt, card, device, failures, scratch) -> dict:
+    """Section (j) of the rllib phase, in its cluster: BC and MARWIL, QMIX,
+    SlateQ, ES and ARS, LinUCB and LinTS at the reference tests' configs
+    (RLLIB_LIGHT). Returns their numbers; appends to ``failures``."""
+    from unittest import mock
+
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib import (
+        ARSConfig,
+        BCConfig,
+        ESConfig,
+        MARWILConfig,
+        QMIXConfig,
+        SlateQConfig,
+    )
+    from ray_tpu_torch.rllib.algorithms.es import es as tes
+    from ray_tpu_torch.rllib.algorithms.marwil.marwil import marwil_loss
+    from ray_tpu_torch.rllib.algorithms.qmix import qmix as tqmix
+    from ray_tpu_torch.rllib.algorithms.slateq import slateq as tslateq
+    from ray_tpu_torch.rllib.core import learner as tlearner
+    from ray_tpu_torch.rllib.core.rl_module import RLModule, copy_into, host_tree, tree_leaves
+    from ray_tpu_torch.rllib.env import SlateRecEnv
+
+    c = RLLIB_LIGHT
+    cuda = device == "cuda"
+    res, marks = {}, {}
+
+    def tf32_allowed(module):
+        """The module's computation with its full-f32 scope taken away: TF32
+        as the process has it (the control)."""
+        return mock.patch.object(module, "full_f32", lambda device: contextlib.nullcontext())
+
+    # ---- (j1) BC and MARWIL on tests/test_rllib.py's offline data ----
+    for kind, iters, bar, cfg_fn in (
+            ("bc", c["bc_iters"], 45, lambda: BCConfig().training(lr=5e-3, train_batch_size=512)),
+            ("marwil", c["marwil_iters"], 40,
+             lambda: MARWILConfig().training(lr=5e-3, train_batch_size=1024, beta=2.0))):
+        t_sec = time.perf_counter()
+        path = os.path.join(scratch, kind)
+        rows = _expert_rows(path, kind)
+        cfg = cfg_fn().environment("CartPole-v1").rollouts(num_rollout_workers=0).debugging(seed=0) \
+            .resources(device=device)
+        cfg.offline_data(input_=path)
+        algo = cfg.build()
+        first = {}
+        try:
+            lg = algo.learner_group
+            learner, real_update = lg.local_learner, lg.update
+
+            def checked(batch, loss_cfg, kind=kind, learner=learner, real_update=real_update, first=first):
+                if not first:
+                    cpu = tlearner.Learner(learner.spec, marwil_loss, device="cpu")
+                    cpu.set_weights(learner.get_weights())
+
+                    def run(lrn):
+                        loss, metrics, grads = lrn.compute_grads(batch, loss_cfg)
+                        return dict(metrics, total_loss=loss), grads
+
+                    def control():
+                        with tf32_allowed(tlearner):
+                            return learner.compute_grads(batch, loss_cfg)[2]
+
+                    first.update(_held_to_cpu(torch, A, f"{kind} learner update", lambda: run(learner),
+                                              lambda: run(cpu), control, cuda, failures))
+                return real_update(batch, loss_cfg)
+
+            lg.update = checked
+            probe = np.random.default_rng(7).uniform(-1, 1, size=(50, 4)).astype(np.float32)
+            t = time.perf_counter()
+            for _ in range(iters):
+                m = algo.step()
+            run_s = time.perf_counter() - t
+            matched = sum(int(algo.compute_single_action(o) == int(o[0] > 0)) for o in probe)
+            batches = [algo.reader.next(cfg.train_batch_size) for _ in range(c["timed_updates"])]
+            it = iter(batches)
+            upd_ms = _event_ms(torch, cuda, lambda: real_update(next(it), algo.loss_cfg()), c["timed_updates"])
+            print(f"{kind} on {card} ({rows} offline rows, batch {cfg.train_batch_size}, hiddens (64, 64), the "
+                  f"learner in this process): {iters} iterations in {run_s:.2f} s; {upd_ms:.3f} ms an update "
+                  f"({c['timed_updates']} timed with CUDA events: the batch to the card, forward, backward, the "
+                  f"clip, Adam, the metrics read); the expert's action on {matched}/50 probes (bar {bar}); "
+                  f"metrics {m}")
+            if not first or matched < bar or not _finite(m):
+                failures.append(f"{kind}: first update {bool(first)}, {matched}/50 expert matches, metrics {m}")
+            res[kind] = {"rows": rows, "iterations": iters, "run_s": run_s, "update_ms": upd_ms,
+                         "expert_matches": matched, "bar": bar, "first_update": first,
+                         "total_loss": m.get("total_loss")}
+        finally:
+            algo.cleanup()
+        marks[f"{kind}_s"] = time.perf_counter() - t_sec
+
+    # ---- (j2) QMIX on the two-step game ----
+    t_sec = time.perf_counter()
+    qmix_cfg = lambda res_device: (QMIXConfig().environment(_two_step_env_class())  # noqa: E731
+                                   .training(lr=3e-3, train_batch_size=64, learning_starts=128,
+                                             target_network_update_freq=40, rollout_steps_per_iter=400,
+                                             epsilon_timesteps=3000, final_epsilon=0.05, gamma=0.99)
+                                   .debugging(seed=0).resources(device=res_device))
+    algo = qmix_cfg(device).build()
+    first, act_s = {}, []
+    try:
+        real_step, real_q = algo.train_step, algo._q_values
+
+        def checked_step(batch):
+            if not first:
+                cpu = qmix_cfg("cpu").build()
+                copy_into(cpu.params, host_tree(algo.params))
+                copy_into(cpu.target, host_tree(algo.target))
+                tb = {k: torch.from_numpy(np.require(np.asarray(v), requirements="W")) for k, v in batch.items()}
+
+                def run(a, full=True):
+                    scope = tqmix.full_f32(a.device) if full else contextlib.nullcontext()
+                    with scope:
+                        loss, aux = tqmix.qmix_loss(a.params, a.target, {k: v.to(a.device) for k, v in tb.items()},
+                                                    gamma=0.99)
+                        return dict(aux, loss=loss), torch.autograd.grad(loss, tree_leaves(a.params))
+
+                first.update(_held_to_cpu(torch, A, "qmix train step", lambda: run(algo), lambda: run(cpu),
+                                          lambda: run(algo, full=False)[1], cuda, failures))
+                cpu.cleanup()
+            return real_step(batch)
+
+        def timed_q(obs):
+            t = time.perf_counter()
+            out = real_q(obs)
+            act_s.append(time.perf_counter() - t)
+            return out
+
+        algo.train_step, algo._q_values = checked_step, timed_q
+        best, iters = -1e9, []
+        for _ in range(c["qmix_iters"]):
+            t = time.perf_counter()
+            r = algo.step()
+            iters.append(time.perf_counter() - t)
+            if np.isfinite(r["episode_reward_mean"]):
+                best = max(best, r["episode_reward_mean"])
+            if best >= 7.5:
+                break
+        greedy = algo.compute_actions(_two_step_env_class()().reset()[0])
+        batches = [algo.buffer.sample(64) for _ in range(c["timed_updates"])]
+        it = iter(batches)
+        upd_ms = _event_ms(torch, cuda, lambda: real_step(next(it)), c["timed_updates"])
+        print(f"qmix on {card} (the two-step game, agent (64, 64), mixing embed 32, batch 64): best mean reward "
+              f"{best} in {len(iters)} iterations of 400 env steps (bar 7.5 within {c['qmix_iters']}; "
+              f"{[round(x, 2) for x in iters]} s); greedy joint action {greedy}; {upd_ms:.3f} ms a train step "
+              f"({c['timed_updates']} timed with CUDA events: the batch to the card, both mixers, backward, Adam); "
+              f"acting {np.median(act_s) * 1e3:.3f} ms median a step (the agents' Q on the card, one read)")
+        if not first or best < 7.5 or greedy["a0"] != 1:
+            failures.append(f"qmix: first train step {bool(first)}, best {best}, greedy {greedy}")
+        res["qmix"] = {"best_reward": best, "iterations": len(iters), "iteration_s": iters, "update_ms": upd_ms,
+                       "act_ms": float(np.median(act_s)) * 1e3, "first_update": first}
+    finally:
+        algo.cleanup()
+    marks["qmix_s"] = time.perf_counter() - t_sec
+
+    # ---- (j3) SlateQ on SlateRecEnv ----
+    t_sec = time.perf_counter()
+    slateq_cfg = lambda res_device: (SlateQConfig().environment(SlateRecEnv)  # noqa: E731
+                                     .training(rollout_steps_per_iter=400, learning_starts=400, train_intensity=2,
+                                               epsilon_timesteps=4000)
+                                     .debugging(seed=0).resources(device=res_device))
+    algo = slateq_cfg(device).build()
+    first = {}
+    try:
+        real_update = algo.update
+
+        def checked_update(batch):
+            if not first:
+                cpu = slateq_cfg("cpu").build()
+                copy_into(cpu.params, host_tree(algo.params))
+                copy_into(cpu.target_params, host_tree(algo.target_params))
+                tb = {k: torch.from_numpy(np.require(np.asarray(v), requirements="W")) for k, v in batch.items()}
+
+                def run(a):
+                    total, aux, q_grads, choice_grads = a.loss_and_grads({k: v.to(a.device) for k, v in tb.items()})
+                    return dict(aux, total_loss=total), q_grads + choice_grads
+
+                def control():
+                    with tf32_allowed(tslateq):
+                        return run(algo)[1]
+
+                first.update(_held_to_cpu(torch, A, "slateq update", lambda: run(algo), lambda: run(cpu), control,
+                                          cuda, failures))
+                cpu.cleanup()
+            return real_update(batch)
+
+        algo.update = checked_update
+        iters = []
+        for _ in range(c["slateq_iters"]):
+            t = time.perf_counter()
+            m = algo.step()
+            iters.append(time.perf_counter() - t)
+        # One batch's greedy slates on the card against the CPU's.
+        b = algo.buffer.sample(c["slate_rows"])
+        cpu = slateq_cfg("cpu").build()
+        copy_into(cpu.params, host_tree(algo.params))
+        got, want = algo.greedy_slates(b["user"], b["docs"]), cpu.greedy_slates(b["user"], b["docs"])
+        with torch.no_grad():
+            u, d = torch.from_numpy(b["user"]), torch.from_numpy(b["docs"])
+            q = tslateq.per_item(cpu.params["q"], u, d)
+            v = tslateq.per_item(cpu.params["choice"], u, d)
+            score = torch.where(q > 0, torch.exp(v) * q, q).numpy()
+        cpu.cleanup()
+        ties = _f32_near_ties(score, algo.K)
+        differ = np.any(got != want, axis=1)
+        print(f"slateq greedy slates on the card against the CPU ({len(got)} replay rows): {int(differ.sum())} rows "
+              f"differ, {int(ties.sum())} rows hold a near-tie (two of the top {algo.K + 1} scores within 8 f32 "
+              f"ulps), {int((differ & ~ties).sum())} rows differ without one (bar 0)")
+        if np.any(differ & ~ties):
+            failures.append(f"slateq: {int((differ & ~ties).sum())} greedy slates on the card part from the CPU's")
+        batches = [algo.buffer.sample(algo._algo_config.train_batch_size) for _ in range(c["timed_updates"])]
+        it = iter(batches)
+        upd_ms = _event_ms(torch, cuda, lambda: real_update(next(it)), c["timed_updates"])
+        obs = [algo._split_obs(np.asarray(algo.env.reset(seed=s)[0], np.float32)) for s in range(c["act_steps"])]
+        t = time.perf_counter()
+        for user, docs in obs:
+            algo.greedy_slates(user[None], docs[None])
+        act_ms = (time.perf_counter() - t) / len(obs) * 1e3
+        print(f"slateq on {card} (SlateRecEnv: 10 candidates, slates of 2, hiddens (64, 64), batch 64): "
+              f"{c['slateq_iters']} iterations of 400 env steps in {[round(x, 2) for x in iters]} s "
+              f"({[round(400 / x) for x in iters]} env steps/s; {algo._updates} updates from step 400); "
+              f"{upd_ms:.3f} ms an update ({c['timed_updates']} timed with CUDA events: the batch to the card, the "
+              f"target's greedy slates, both heads, backward, two Adams); {act_ms:.3f} ms a greedy acting step "
+              f"(host clock: the obs to the card, both heads over 10 candidates, the top-k, one read); metrics {m}")
+        if not first or not _finite(m):
+            failures.append(f"slateq: first update {bool(first)}, metrics {m}")
+        res["slateq"] = {"iteration_s": iters, "updates": algo._updates, "update_ms": upd_ms, "act_ms": act_ms,
+                         "first_update": first, "greedy_rows": len(got), "greedy_rows_differ": int(differ.sum()),
+                         "greedy_near_ties": int(ties.sum()), "total_loss": m.get("total_loss")}
+    finally:
+        algo.cleanup()
+    marks["slateq_s"] = time.perf_counter() - t_sec
+
+    # ---- (j4) ES and ARS on CartPole-v1, 2 CPU worker actors each ----
+    t_sec = time.perf_counter()
+    built = _build_together({
+        "es": ESConfig().environment("CartPole-v1").rollouts(num_rollout_workers=2)
+        .training(episodes_per_batch=16, stepsize=0.02, noise_stdev=0.05, episode_horizon=200, eval_episodes=3,
+                  model_hiddens=(16,)).debugging(seed=0).resources(device=device),
+        "ars": ARSConfig().environment("CartPole-v1").rollouts(num_rollout_workers=2)
+        .training(episodes_per_batch=16, num_top_directions=8, noise_stdev=0.05, stepsize=0.05, episode_horizon=500,
+                  eval_episodes=3).debugging(seed=0).resources(device=device),
+    })
+    try:
+        for name, algo in built.items():
+            iters, steps = [], []
+            for _ in range(c["es_iters"]):
+                r = algo.step()
+                iters.append(r["time_this_iter_s"])
+                steps.append(r["timesteps_total"] - sum(steps))
+            obs = np.random.default_rng(3).normal(size=(c["act_obs"], 4)).astype(np.float32)
+            actions = [algo.compute_single_action(o) for o in obs]
+            cpu = RLModule(algo.module_spec, device="cpu").requires_grad_(False)
+            cpu.load_params(tes._unflatten(algo.flat, algo._template, algo._shapes))
+            x = obs
+            if name == "ars" and getattr(algo, "_obs_mean_cur", None) is not None:
+                x = ((obs - algo._obs_mean_cur) / (algo._obs_std_cur + 1e-8)).astype(np.float32)
+            with torch.no_grad():
+                module = algo._act_module
+                with tlearner.full_f32(algo.device):
+                    on_card = module(torch.from_numpy(x).to(algo.device))[0].cpu()
+                on_host = cpu(torch.from_numpy(x))[0]
+            rel = float((on_card - on_host).abs().max() / on_host.abs().max().clamp_min(1e-30))
+            same = actions == on_host.argmax(-1).tolist()
+            rates = [n / s for n, s in zip(steps, iters)]
+            print(f"{name} on {card} (CartPole-v1, 2 CPU worker actors pinned to the host, 16 antithetic pairs): "
+                  f"{c['es_iters']} iterations in {[round(x, 2) for x in iters]} s ({[round(x) for x in rates]} env "
+                  f"steps/s, {steps} env steps); reward {r['episode_reward_mean']}; "
+                  f"compute_single_action on the card against the CPU forward on {len(obs)} observations: actions "
+                  f"equal {same}, logits rel {rel:.1e} (bar {RLLIB_ATARI_RTOL})")
+            if not same or not rel <= RLLIB_ATARI_RTOL or not all(n > 0 for n in steps):
+                failures.append(f"{name}: actions equal {same}, logits rel {rel}, env steps {steps}")
+            res[name] = {"iteration_s": iters, "env_steps": steps, "env_steps_per_s": rates,
+                         "reward": r["episode_reward_mean"], "act_actions_equal": same, "act_logits_rel": rel}
+    finally:
+        for algo in built.values():
+            algo.cleanup()
+    marks["es_ars_s"] = time.perf_counter() - t_sec
+
+    # ---- (j5) LinUCB and LinTS: numpy on the host, nothing on the card ----
+    # In a process that sees no card (CUDA_VISIBLE_DEVICES empty) and cannot
+    # import gymnasium: there they cannot launch anything on a card.
+    t_sec = time.perf_counter()
+    code = ("import json, sys\n"
+            "sys.modules['gymnasium'] = None\n"
+            "import chip_smoke\n"
+            f"print(json.dumps(chip_smoke.bandits_on_the_host({c['bandit_iters']})))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        failures.append(f"bandits: the host-only process exited {out.returncode}: {out.stderr[-2000:]}")
+    else:
+        bandits = json.loads(out.stdout.strip().splitlines()[-1])
+        for name, r in bandits["algorithms"].items():
+            print(f"{name} (numpy, in a process with no card visible and no gymnasium: "
+                  f"torch.cuda.is_available() {bandits['cuda_available']}): mean reward by iteration "
+                  f"{r['mean_reward']} (bar > 0.8 at the last), greedy {r['greedy']}")
+            if not r["mean_reward"][-1] > 0.8 or r["greedy"] != [0, 1] or bandits["cuda_available"]:
+                failures.append(f"{name}: {r}, cuda available {bandits['cuda_available']}")
+        res["bandits"] = bandits
+    marks["bandits_s"] = time.perf_counter() - t_sec
+    res["sections_s"] = marks
+    return res
+
+
 def rllib_phase(torch, card, device="cuda", sizes=None):
     """RLlib on the card (phase 15): (a) PPO on CartPole-v1, CPU rollout
     workers and one learner actor holding the card; (b) the learner at the
@@ -3992,11 +4455,19 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
         model_based.update(rllib_families_launches=i_counts, section_s=time.perf_counter() - t_i)
         res["model_based"] = model_based
         print("(i): " + json.dumps(model_based))
+        t_j = time.perf_counter()
+        lighter = rllib_lighter(torch, rt, card, device, failures, scratch)
+        j_end = A.launch_counts()
+        j_counts = {k: j_end[k] - family_counts[k] for k in j_end}
+        family_counts = j_end
+        lighter.update(rllib_families_launches=j_counts, section_s=time.perf_counter() - t_j)
+        res["lighter"] = lighter
+        print("(j): " + json.dumps(lighter))
         print(f"rllib families: flash kernel launches in this process over sections (d)-(g): {dg_counts}, over "
-              f"(h): {h_counts}, over (i): {i_counts}")
+              f"(h): {h_counts}, over (i): {i_counts}, over (j): {j_counts}")
         if any(family_counts.values()):
-            failures.append(f"rllib families: the value, policy-gradient, continuous and model-based paths launched "
-                            f"{family_counts}")
+            failures.append(f"rllib families: the value, policy-gradient, continuous, model-based and lighter paths "
+                            f"launched {family_counts}")
         pids |= {w.pid for w in rt._global_node.raylet.workers.values() if w.pid}
         marks["families_s"] = time.perf_counter() - t
     finally:

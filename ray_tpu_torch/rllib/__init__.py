@@ -11,11 +11,13 @@ Ported so far (ROADMAP A13a-d, f and part of e): PPO, IMPALA, APPO, DT, PG,
 A2C, A3C, DD-PPO, DQN, SimpleQ, Ape-X DQN, R2D2, the continuous family
 (SAC, DDPG, TD3, CQL, CRR, Ape-X DDPG, MADDPG), and the model-based and
 meta-learning family (DreamerV3, MAML, MBMPO, with the task-settable
-``PointGoalEnv``) with the layers under them, the multi-agent env, the
-port's own Pendulum-v1, and the Podracer weight sync
-(``weight_sync="device_broadcast"``, ``grad_sync="device_allreduce"``). The
-JAX package's other algorithms and its external-env and policy-server modules
-are not exported here until they are ported.
+``PointGoalEnv``), the lighter algorithms (MARWIL and BC, QMIX, SlateQ with
+the slate env ``SlateRecEnv``, ES and ARS, and the numpy bandits LinUCB and
+LinTS) with the layers under them, the multi-agent env, the port's own
+Pendulum-v1, and the Podracer weight sync (``weight_sync="device_broadcast"``,
+``grad_sync="device_allreduce"``). The JAX package's other algorithms and its
+external-env and policy-server modules are not exported here until they are
+ported.
 """
 
 from ray_tpu_torch.rllib.algorithms.a2c import A2C, A2CConfig  # noqa: F401
@@ -24,6 +26,8 @@ from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig 
 from ray_tpu_torch.rllib.algorithms.apex_ddpg import ApexDDPG, ApexDDPGConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.apex_dqn import ApexDQN, ApexDQNConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.ars import ARS, ARSConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.bandits import BanditConfig, BanditLinTS, BanditLinUCB  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.crr import CRR, CRRConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.ddpg import DDPG, TD3, DDPGConfig, TD3Config  # noqa: F401
@@ -31,15 +35,19 @@ from ray_tpu_torch.rllib.algorithms.ddppo import DDPPO, DDPPOConfig  # noqa: F40
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.dreamerv3 import DreamerV3, DreamerV3Config  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.dt import DT, DTConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.es import ES, ESConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.maddpg import MADDPG, MADDPGConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.maml import MAML, MAMLConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.marwil import BC, MARWIL, BCConfig, MARWILConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.mbmpo import MBMPO, MBMPOConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.pg import PG, PGConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.qmix import QMIX, QMIXConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.r2d2 import R2D2, R2D2Config  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.simple_q import SimpleQ, SimpleQConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.slateq import SlateQ, SlateQConfig  # noqa: F401
 from ray_tpu_torch.rllib.callbacks import DefaultCallbacks  # noqa: F401
 from ray_tpu_torch.rllib.core.learner import Learner, LearnerGroup  # noqa: F401
 from ray_tpu_torch.rllib.core.rl_module import RLModule, RLModuleSpec  # noqa: F401

@@ -169,7 +169,8 @@ def test_rllib_needs_no_gymnasium():
     """The card's machine need not have gymnasium: no module of the port
     imports it at module level, and with it blocked RLlib imports, builds its
     own CartPole-v1, Pendulum-v1, PointGoalEnv (its tensor reward and
-    dynamics) and its spaces, builds DreamerV3 and MBMPO on them, and names
+    dynamics), SlateRecEnv and its spaces, builds DreamerV3, MBMPO and SlateQ
+    on them, imports the ES, ARS, QMIX, MARWIL and bandit modules, and names
     the package for any other env id."""
     for path in sorted((ROOT / "ray_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -205,6 +206,14 @@ def test_rllib_needs_no_gymnasium():
         "algo.cleanup()\n"
         "algo = MBMPOConfig().environment(PointGoalEnv).resources(device='cpu').build()\n"
         "algo.cleanup()\n"
+        "from ray_tpu_torch.rllib import SlateQConfig\n"
+        "from ray_tpu_torch.rllib.env import SlateRecEnv\n"
+        "import ray_tpu_torch.rllib.algorithms.es.es, ray_tpu_torch.rllib.algorithms.ars.ars\n"
+        "import ray_tpu_torch.rllib.algorithms.qmix.qmix, ray_tpu_torch.rllib.algorithms.marwil.marwil\n"
+        "import ray_tpu_torch.rllib.algorithms.bandits.bandits\n"
+        "algo = SlateQConfig().environment(SlateRecEnv).resources(device='cpu').build()\n"
+        "assert len(algo.compute_single_action(algo.env.reset(seed=0)[0])) == 2\n"
+        "algo.cleanup()\n"
         "try:\n"
         "    make('Acrobot-v1')\n"
         "except ImportError as e:\n"
@@ -222,15 +231,20 @@ def test_rllib_exports_exactly_the_ported_algorithms():
     nothing of the JAX package's that is not ported."""
     import ray_tpu_torch.rllib as trl
 
-    ported = ["A2C", "A3C", "APPO", "ApexDDPG", "ApexDQN", "CQL", "CRR", "DDPG", "DDPPO", "DQN", "DT", "DreamerV3",
-              "IMPALA", "MADDPG", "MAML", "MBMPO", "PG", "PPO", "R2D2", "SAC", "SimpleQ", "TD3"]
+    ported = ["A2C", "A3C", "APPO", "ARS", "ApexDDPG", "ApexDQN", "BC", "CQL", "CRR", "DDPG", "DDPPO", "DQN", "DT",
+              "DreamerV3", "ES", "IMPALA", "MADDPG", "MAML", "MARWIL", "MBMPO", "PG", "PPO", "QMIX", "R2D2", "SAC",
+              "SimpleQ", "SlateQ", "TD3"]
     configs = sorted(n[: -len("Config")] for n in dir(trl) if n.endswith("Config") and n != "AlgorithmConfig")
-    assert configs == sorted(ported)
+    assert configs == sorted(ported + ["Bandit"])
     for name in ported:
         assert issubclass(getattr(trl, name), trl.Algorithm)
         assert getattr(trl, f"{name}Config")().algo_class is getattr(trl, name)
+    # The two bandits share one config class, as in the JAX package.
+    assert issubclass(trl.BanditLinTS, trl.BanditLinUCB) and issubclass(trl.BanditLinUCB, trl.Algorithm)
+    assert trl.BanditConfig().algo_class is trl.BanditLinUCB
+    assert trl.BanditLinTS.get_default_config().algo_class is trl.BanditLinTS
     assert trl.MultiAgentEnv is trl.env.multi_agent_env.MultiAgentEnv and callable(trl.make_multi_agent)
-    for name in ("MARWIL", "BC", "ES", "ARS", "QMIX", "SlateQ", "AlphaZero", "ExternalEnv", "PolicyClient"):
+    for name in ("AlphaZero", "AlphaStar", "LeelaChessZero", "ExternalEnv", "PolicyClient"):
         assert not hasattr(trl, name), name
 
 
@@ -405,6 +419,46 @@ def test_entry_points_raise_without_a_card():
     for config in (MAMLConfig, MBMPOConfig):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             config().environment(PointGoalEnv).build()
+    # The lighter algorithms: MARWIL's and BC's learner, QMIX's and SlateQ's
+    # networks and the acting forward of ES and ARS on the card; each raises
+    # before it reads data, makes an env or starts a worker actor. The
+    # bandits are numpy on the host and take no device.
+    from ray_tpu_torch.rllib import (
+        ARSConfig,
+        BanditLinUCB,
+        BCConfig,
+        ESConfig,
+        MARWILConfig,
+        QMIXConfig,
+        SlateQConfig,
+    )
+    from ray_tpu_torch.rllib.env import SlateRecEnv
+
+    for config in (MARWILConfig, BCConfig):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            config().environment("CartPole-v1").offline_data(input_="unused").build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QMIXConfig().environment(TwoAgents).build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SlateQConfig().environment(SlateRecEnv).build()
+    for config in (ESConfig, ARSConfig):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            config().environment("CartPole-v1").build()
+
+    class OneArm:
+        observation_space = Box(-1.0, 1.0, (2,))
+        action_space = Discrete(2)
+
+        def __init__(self, config=None):
+            pass
+
+        def reset(self, *, seed=None):
+            return [0.0, 0.0], {}
+
+        def close(self):
+            pass
+
+    BanditLinUCB.get_default_config().environment(OneArm).build().cleanup()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Policy.from_spaces(Box(-1.0, 1.0, (4,)), Discrete(2))
 
