@@ -278,9 +278,24 @@ line:
    iterations (s an iteration, env steps/s), compute_single_action on the card
    against the CPU forward (equal actions, logits within RLLIB_ATARI_RTOL);
    LinUCB and LinTS on a 2-arm context bandit in a process that sees no card
-   and cannot import gymnasium (mean reward > 0.8); a "(j): {...}" line. Every flash launch in
-   this process over (d)-(j) is counted: the kernels line's rows carry the
-   count as "rllib_families_launches" (0: these paths compute no attention).
+   and cannot import gymnasium (mean reward > 0.8); a "(j): {...}" line. (k) The MCTS family
+   at the reference tests' configs (RLLIB_MCTS): AlphaZero on CartPole-v1,
+   LeelaChessZero on tic-tac-toe and the AlphaStar league on
+   rock-paper-scissors for 2 iterations each, each first update on the card
+   held to the same update on the CPU (the Atari check's bars, the TF32
+   control), LC0's masked forward against the CPU's, ms of a search
+   expansion's forward and read (host clock and CUDA events), ms an update,
+   self-play env steps/s; then the profiler probe of ROADMAP O3 (adds
+   under torch.profiler on this thread and a fresh one, device events
+   counted); a "(k): {...}" line. (l) The external path (RLLIB_EXTERNAL): a
+   PolicyServerInput serving DQN's compute_single_action on the card to 2
+   PolicyClient threads playing the port's CartPole-v1 (get_action/s, ms a
+   get_action, the served actions equal to a CPU copy's greedy ones), DQN
+   trained on those episodes, and `python -m ray_tpu_torch.rllib train --run
+   PPO --env CartPole-v1 --stop-iters 1` in a subprocess (exit 0); a
+   "(l): {...}" line. Every flash launch in this process over (d)-(l) is
+   counted: the kernels line's rows carry the count as
+   "rllib_families_launches" (0: these paths compute no attention).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
@@ -498,6 +513,27 @@ RLLIB_MODEL_BASED = dict(dreamer_iters=3, dreamer_timed=20, maml_iters=1, maml_t
 # are timed with CUDA events after its run.
 RLLIB_LIGHT = dict(bc_iters=60, marwil_iters=80, qmix_iters=15, slateq_iters=3, slate_rows=256, act_steps=200,
                    es_iters=2, act_obs=64, bandit_iters=5, timed_updates=20)
+# The rllib phase's section (k), the MCTS family, in the same cluster at the
+# reference tests' configs: AlphaZero on CartPole-v1 (tests/
+# test_rllib_alpha_zero.py: 25 simulations, 3 episodes and 30 updates an
+# iteration), LeelaChessZero on tic-tac-toe (tests/test_rllib_lc0.py: 25
+# simulations, 8 games, 6 updates of 128) and the AlphaStar league on
+# rock-paper-scissors with the rock-heavy seed (tests/test_rllib_league.py: 24
+# rounds, 6 episodes a slot), `iters` iterations each. Each first update on
+# the card is held to the same update on the CPU (same weights and batch) at
+# the Atari check's bars with the TF32 control; LC0's masked forward over
+# `lc0_rows` replay positions against the CPU's; `timed` expansions, acting
+# steps and updates of each timed after its run. Then the profiler probe of
+# ROADMAP O3: `probe_adds` adds of 2^20 f32 under torch.profiler, on this
+# thread and on a fresh one, their device events counted.
+RLLIB_MCTS = dict(iters=2, lc0_rows=128, timed=200, timed_updates=20, probe_adds=5)
+# Section (l), the external path: a PolicyServerInput in this process serves
+# DQN's greedy compute_single_action on the card to `clients` PolicyClient
+# threads, each playing `episodes` episodes of the port's CartPole-v1; the
+# served actions are held to a CPU copy's greedy actions; then DQN trains
+# `updates` updates on those episodes. Then `python -m ray_tpu_torch.rllib
+# train --run PPO --env CartPole-v1 --stop-iters 1` in a subprocess.
+RLLIB_EXTERNAL = dict(clients=2, episodes=10, updates=32, cli_timeout=300)
 # The R2D2 update on the card against the CPU's (full f32 on both): the loss
 # within RLLIB_ATARI_RTOL and the gradients within RLLIB_ATARI_GRAD_RTOL, the
 # Atari check's bars.
@@ -4309,6 +4345,395 @@ def rllib_lighter(torch, rt, card, device, failures, scratch) -> dict:
     return res
 
 
+def profiler_probe(torch, n) -> dict:
+    """ROADMAP O3: ``n`` adds of 2^20 f32 under torch.profiler (CPU and CUDA
+    activities), on this thread and on a fresh one; the device events, and
+    those whose name holds "add" (``n`` when the profiler sees the card),
+    counted in each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1 << 20, device="cuda")
+    out = {}
+
+    def run(where):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                x.add(1.0)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        out[where] = {"add_kernels": sum("add" in e.name.lower() for e in device), "device_events": len(device)}
+
+    run("this_thread")
+    t = threading.Thread(target=run, args=("fresh_thread",))
+    t.start()
+    t.join()
+    return out
+
+
+def rllib_mcts(torch, rt, card, device, failures) -> dict:
+    """Section (k) of the rllib phase, in its cluster: AlphaZero,
+    LeelaChessZero and the AlphaStar league at the reference tests' configs
+    (RLLIB_MCTS), then the profiler probe. Returns their numbers; appends to
+    ``failures``."""
+    from unittest import mock
+
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.rllib import AlphaStarConfig, AlphaZeroConfig, LeelaChessZeroConfig
+    from ray_tpu_torch.rllib.algorithms.alpha_star import alpha_star as tas
+    from ray_tpu_torch.rllib.algorithms.alpha_zero import alpha_zero as taz
+    from ray_tpu_torch.rllib.algorithms.leela_chess_zero import leela_chess_zero as tlc0
+    from ray_tpu_torch.rllib.core.rl_module import copy_into, host_tree
+    from ray_tpu_torch.rllib.env.board_env import TicTacToeEnv
+    from ray_tpu_torch.rllib.env.two_player import TwoPlayerMatrixEnv, scripted_biased_policy
+
+    c = RLLIB_MCTS
+    cuda = device == "cuda"
+    res, marks = {}, {}
+
+    def tf32_allowed(module):
+        """The module's computation with its full-f32 scope taken away: TF32
+        as the process has it (the control)."""
+        return mock.patch.object(module, "full_f32", lambda device: contextlib.nullcontext())
+
+    def checked_first(label, module, algo, cpu_factory, first, run):
+        """Hold ``run(algo)``'s first call on the card to ``run(cpu)`` on a
+        CPU twin holding the same weights."""
+        cpu = cpu_factory()
+        first.update(_held_to_cpu(torch, A, label, lambda: run(algo), lambda: run(cpu),
+                                  lambda: control_grads(module, algo, run), cuda, failures))
+        cpu.cleanup()
+
+    def control_grads(module, algo, run):
+        with tf32_allowed(module):
+            return run(algo)[1]
+
+    def timed_calls(store, fn):
+        def timed(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            store.append(time.perf_counter() - t)
+            return out
+
+        return timed
+
+    # ---- (k1) AlphaZero on CartPole-v1 ----
+    t_sec = time.perf_counter()
+    az_cfg = lambda d: (AlphaZeroConfig().environment("CartPole-v1")  # noqa: E731
+                        .training(num_sims=25, episodes_per_iter=3, updates_per_iter=30, horizon=200, lr=5e-3,
+                                  temperature_timesteps=1500).debugging(seed=0).resources(device=d))
+    algo = az_cfg(device).build()
+    first, expand_s, play = {}, [], {"s": 0.0, "steps": 0}
+    try:
+        real_update, real_predict, real_play = algo.update, algo._predict, algo._self_play_episode
+
+        def az_twin():
+            cpu = az_cfg("cpu").build()
+            cpu.module.load_params(algo.module.get_params())
+            return cpu
+
+        def checked(batch):
+            if not first:
+                checked_first("alpha_zero update", taz, algo, az_twin, first, lambda a: a.loss_and_grads(batch))
+            return real_update(batch)
+
+        def played():
+            t, n = time.perf_counter(), algo._timesteps_total
+            out = real_play()
+            play["s"] += time.perf_counter() - t
+            play["steps"] += algo._timesteps_total - n
+            return out
+
+        algo.update, algo._predict, algo._self_play_episode = checked, timed_calls(expand_s, real_predict), played
+        iters, rewards = [], []
+        for _ in range(c["iters"]):
+            t = time.perf_counter()
+            r = algo.step()
+            iters.append(time.perf_counter() - t)
+            rewards.append(r["episode_reward_mean"])
+        obs = np.asarray(algo.env.reset(seed=0)[0], np.float32)
+        ev_ms = _event_ms(torch, cuda, lambda: real_predict(obs), c["timed"])
+        batches = [algo._replay_batch() for _ in range(c["timed_updates"])]
+        it = iter(batches)
+        upd_ms = _event_ms(torch, cuda, lambda: real_update(next(it)), c["timed_updates"])
+        wall_ms = float(np.median(expand_s)) * 1e3
+        rate = play["steps"] / play["s"]
+        print(f"alpha_zero on {card} (CartPole-v1, 25 simulations a step, hiddens (64, 64), batch 128): "
+              f"{c['iters']} iterations in {[round(x, 2) for x in iters]} s, rewards {rewards}; self-play "
+              f"{play['steps']} env steps at {rate:.1f} env steps/s ({len(expand_s)} network calls); one search "
+              f"expansion's forward and read {wall_ms:.3f} ms median by the host clock, {ev_ms:.3f} ms by CUDA "
+              f"events ({c['timed']} calls); {upd_ms:.3f} ms an update ({c['timed_updates']} timed with CUDA events: "
+              f"the batch to the card, forward, backward, Adam); metrics {r}")
+        if not first or not _finite(r):
+            failures.append(f"alpha_zero: first update {bool(first)}, metrics {r}")
+        res["alpha_zero"] = {"iteration_s": iters, "rewards": rewards, "self_play_env_steps": play["steps"],
+                             "self_play_env_steps_per_s": rate, "expand_ms_wall": wall_ms, "expand_ms_events": ev_ms,
+                             "network_calls": len(expand_s), "update_ms": upd_ms, "first_update": first,
+                             "total_loss": r.get("total_loss")}
+    finally:
+        algo.cleanup()
+    marks["alpha_zero_s"] = time.perf_counter() - t_sec
+
+    # ---- (k2) LeelaChessZero on tic-tac-toe ----
+    t_sec = time.perf_counter()
+    lc0_cfg = lambda d: (LeelaChessZeroConfig().environment(TicTacToeEnv)  # noqa: E731
+                         .training(lr=2e-3, num_sims=25, games_per_iter=8, sgd_iters=6, train_batch_size=128,
+                                   model_hiddens=(64, 64)).debugging(seed=0).resources(device=d))
+    algo = lc0_cfg(device).build()
+    first, expand_s, play = {}, [], {"s": 0.0, "steps": 0}
+    try:
+        real_update, real_predict, real_play = algo.update, algo._predict, algo._self_play_game
+
+        def lc0_twin():
+            cpu = lc0_cfg("cpu").build()
+            copy_into(cpu.params, host_tree(algo.params))
+            return cpu
+
+        def checked(batch):
+            if not first:
+                checked_first("lc0 update", tlc0, algo, lc0_twin, first, lambda a: a.loss_and_grads(batch))
+            return real_update(batch)
+
+        def played():
+            t, n = time.perf_counter(), algo._timesteps_total
+            out = real_play()
+            play["s"] += time.perf_counter() - t
+            play["steps"] += algo._timesteps_total - n
+            return out
+
+        algo.update, algo._predict, algo._self_play_game = checked, timed_calls(expand_s, real_predict), played
+        iters = []
+        for _ in range(c["iters"]):
+            t = time.perf_counter()
+            r = algo.step()
+            iters.append(time.perf_counter() - t)
+        flat = [row for game in algo._replay for row in game]
+        rng = np.random.default_rng(5)
+        rows = [flat[i] for i in rng.integers(0, len(flat), c["lc0_rows"])]
+        batch = tlc0.rows_to_batch(rows)
+        if not first:  # fewer positions than a batch so far: one update by hand
+            algo.update(batch)
+        obs = torch.from_numpy(np.stack([row[0] for row in rows]))
+        legal = torch.from_numpy(np.stack([row[1] for row in rows]))
+        cpu = lc0_twin()
+        with torch.no_grad():
+            with tlc0.full_f32(algo.device):
+                on_card = [t.cpu() for t in tlc0.lc0_forward(algo.params, obs.to(algo.device), legal.to(algo.device))]
+            on_host = tlc0.lc0_forward(cpu.params, obs, legal)
+        cpu.cleanup()
+        fwd = {}
+        for name, got, want in zip(("logp", "value", "moves_left"), on_card, on_host):
+            keep = legal if name == "logp" else torch.ones_like(got, dtype=torch.bool)
+            fwd[name] = float((got - want)[keep].abs().max() / want[keep].abs().max().clamp_min(1e-30))
+        n_legal = legal.sum(-1)
+        ev_ms = _event_ms(torch, cuda, lambda: real_predict(rows[0][0], rows[0][1]), c["timed"])
+        upd_ms = _event_ms(torch, cuda, lambda: real_update(batch), c["timed_updates"])
+        wall_ms = float(np.median(expand_s)) * 1e3
+        rate = play["steps"] / play["s"]
+        print(f"lc0 on {card} (tic-tac-toe, 25 simulations a ply, hiddens (64, 64), batch 128): {c['iters']} "
+              f"iterations in {[round(x, 2) for x in iters]} s ({len(flat)} replay positions); self-play "
+              f"{play['steps']} plies at {rate:.1f} plies/s ({len(expand_s)} network calls); one search expansion's "
+              f"forward and read {wall_ms:.3f} ms median by the host clock, {ev_ms:.3f} ms by CUDA events; "
+              f"{upd_ms:.3f} ms an update; the masked forward on the card against the CPU over {len(rows)} positions "
+              f"({int(n_legal.min())}-{int(n_legal.max())} legal moves): "
+              + ", ".join(f"{k} rel {v:.1e}" for k, v in fwd.items()) + f" (bar {RLLIB_ATARI_RTOL}); metrics {r}")
+        if not first or any(not v <= RLLIB_ATARI_RTOL for v in fwd.values()) or ("total_loss" in r and not _finite(r)):
+            failures.append(f"lc0: first update {bool(first)}, masked forward {fwd}")
+        res["lc0"] = {"iteration_s": iters, "replay_positions": len(flat), "self_play_plies": play["steps"],
+                      "self_play_plies_per_s": rate, "expand_ms_wall": wall_ms, "expand_ms_events": ev_ms,
+                      "network_calls": len(expand_s), "update_ms": upd_ms, "first_update": first,
+                      "masked_forward_rel": fwd, "draw_rate": r.get("draw_rate"), "total_loss": r.get("total_loss")}
+    finally:
+        algo.cleanup()
+    marks["lc0_s"] = time.perf_counter() - t_sec
+
+    # ---- (k3) the AlphaStar league on rock-paper-scissors ----
+    t_sec = time.perf_counter()
+    as_cfg = lambda d: (AlphaStarConfig().environment(TwoPlayerMatrixEnv, env_config={"rounds": 24})  # noqa: E731
+                        .training(lr=5e-3, entropy_coeff=0.003, episodes_per_slot=6, self_play_fraction=0.2,
+                                  snapshot_interval=8, snapshot_min_winrate=0.55, model_hiddens=(32,),
+                                  scripted_league_seeds=[("rocky", scripted_biased_policy(3, 0, p=0.8, seed=1))])
+                        .debugging(seed=0).resources(device=d))
+    algo = as_cfg(device).build()
+    first, act_s, seen = {}, [], []
+    try:
+        real_step, real_sample = algo.a2c_step, algo._sample
+
+        def as_twin():
+            cpu = as_cfg("cpu").build()
+            for name, slot in cpu.slots.items():
+                slot["params"].load_params(algo.slots[name]["params"].get_params())
+            return cpu
+
+        def checked(name, batch):
+            if not first:
+                # The policy loss is a mean of terms that cancel (the
+                # advantages normalised to mean 0): its difference is held
+                # against the terms' mean magnitude (a2c_loss's
+                # policy_terms), the other metrics as they are.
+                def run(a):
+                    aux, grads, _ = a.a2c_loss_and_grads(name, batch)
+                    return {k: v for k, v in aux.items() if k != "policy_loss"}, grads
+
+                cpu = as_twin()
+                first.update(_held_to_cpu(torch, A, f"alpha_star {name} a2c step", lambda: run(algo),
+                                          lambda: run(cpu), lambda: control_grads(tas, algo, run), cuda, failures))
+                got = float(algo.a2c_loss_and_grads(name, batch)[0]["policy_loss"])
+                cpu_aux = cpu.a2c_loss_and_grads(name, batch)[0]
+                want, scale = float(cpu_aux["policy_loss"]), float(cpu_aux["policy_terms"])
+                rel = abs(got - want) / scale
+                print(f"alpha_star {name} policy loss on the card against the CPU: {got:.6g} vs {want:.6g}, the "
+                      f"difference {abs(got - want):.1e} over the terms' mean magnitude {scale:.4g}: {rel:.1e} "
+                      f"(bar {RLLIB_ATARI_RTOL})")
+                if not rel <= RLLIB_ATARI_RTOL:
+                    failures.append(f"alpha_star: the policy loss parts from the CPU's by {rel} of its terms' scale")
+                first["policy_loss_rel_to_terms"] = rel
+                cpu.cleanup()
+            seen.append((name, batch))
+            return real_step(name, batch)
+
+        algo.a2c_step, algo._sample = checked, timed_calls(act_s, real_sample)
+        iters = []
+        for _ in range(c["iters"]):
+            t = time.perf_counter()
+            r = algo.step()
+            iters.append(time.perf_counter() - t)
+        steps = algo._timesteps_total
+        module = algo.slots["main"]["params"]
+        ev_ms = _event_ms(torch, cuda, lambda: real_sample(module, np.zeros(6, np.float32)), c["timed"])
+        name, batch = seen[0]
+        upd_ms = _event_ms(torch, cuda, lambda: real_step(name, batch), c["timed_updates"])
+        wr = algo.winrate_vs("rocky", "main", episodes=10)
+        wall_ms = float(np.median(act_s)) * 1e3
+        rate = steps / sum(iters)
+        print(f"alpha_star on {card} (rock-paper-scissors, 24 rounds, 3 slots x 6 episodes, hiddens (32,)): "
+              f"{c['iters']} iterations in {[round(x, 2) for x in iters]} s, {steps} env steps ({rate:.1f} learner "
+              f"env steps/s); acting {wall_ms:.3f} ms median a draw by the host clock (forward, Gumbel draw, one "
+              f"read), {ev_ms:.3f} ms by CUDA events; {upd_ms:.3f} ms an A2C step ({len(batch["obs"])} rows: the "
+              f"batch to the card, forward, backward, the clip, Adam); main's win-rate against rocky {wr}; {r}")
+        if not first or not all(np.isfinite(r[f"{n}/loss"]) for n in algo.slots):
+            failures.append(f"alpha_star: first update {bool(first)}, metrics {r}")
+        res["alpha_star"] = {"iteration_s": iters, "env_steps": steps, "env_steps_per_s": rate,
+                             "act_ms_wall": wall_ms, "act_ms_events": ev_ms, "a2c_step_ms": upd_ms,
+                             "first_update": first, "winrate_vs_rocky": wr, "league_size": r["league_size"]}
+    finally:
+        algo.cleanup()
+    marks["alpha_star_s"] = time.perf_counter() - t_sec
+
+    # ---- (k4) the profiler probe (ROADMAP O3) ----
+    if cuda:
+        probe = profiler_probe(torch, c["probe_adds"])
+        print(f"profiler probe (O3): {c['probe_adds']} adds under torch.profiler late in the script: {probe}")
+        res["profiler_probe"] = probe
+    res["sections_s"] = marks
+    return res
+
+
+def rllib_external(torch, card, device, failures) -> dict:
+    """Section (l) of the rllib phase: DQN served over a PolicyServerInput to
+    PolicyClient threads, DQN trained on their episodes, and the ``rllib
+    train`` CLI in a subprocess (RLLIB_EXTERNAL). Returns the numbers;
+    appends to ``failures``."""
+    from ray_tpu_torch.rllib import DQNConfig
+    from ray_tpu_torch.rllib.env import PolicyClient, PolicyServerInput
+    from ray_tpu_torch.rllib.env.cartpole import make
+
+    c = RLLIB_EXTERNAL
+    res, marks = {}, {}
+    t_sec = time.perf_counter()
+    dqn_cfg = lambda d: (DQNConfig().environment("CartPole-v1")  # noqa: E731
+                         .training(learning_starts=0, train_batch_size=32, rollout_steps_per_iter=0)
+                         .debugging(seed=0).resources(device=d))
+    algo = dqn_cfg(device).build()
+    server = PolicyServerInput(lambda obs, explore: int(algo.compute_single_action(np.asarray(obs, np.float32))))
+    cpu = None
+    try:
+        get_s, errors = [], []
+
+        def client(i):
+            try:
+                cl, env = PolicyClient(server.address), make("CartPole-v1")
+                for ep in range(c["episodes"]):
+                    obs, _ = env.reset(seed=1000 * i + ep)
+                    eid = cl.start_episode()
+                    while True:
+                        t = time.perf_counter()
+                        a = cl.get_action(eid, obs)
+                        get_s.append(time.perf_counter() - t)
+                        obs, r, term, trunc, _ = env.step(int(a))
+                        cl.log_returns(eid, r)
+                        if term or trunc:
+                            cl.end_episode(eid, obs)
+                            break
+            except Exception as e:  # noqa: BLE001 — reported as a failure below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(c["clients"])]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        wall = time.perf_counter() - t
+        batch = server.next_batch(min_episodes=c["clients"] * c["episodes"])
+        if errors or batch is None or any(th.is_alive() for th in threads):
+            failures.append(f"external: clients failed {errors}, batch {batch is not None}, "
+                            f"{sum(th.is_alive() for th in threads)} clients still running")
+            return res
+        # The served actions against a CPU copy's greedy actions.
+        cpu = dqn_cfg("cpu").build()
+        cpu.learner.module.load_params(algo.learner.module.get_params())
+        want = cpu._greedy(np.asarray(batch["obs"], np.float32))
+        differ = int((np.asarray(batch["actions"]).astype(np.int64) != want).sum())
+        n0 = algo._updates
+        algo.buffer.add(batch)
+        algo._timesteps_total += len(batch)
+        t = time.perf_counter()
+        for _ in range(c["updates"]):
+            m = algo._train_once()  # host floats: the learner reads its metrics once an update
+        train_s = time.perf_counter() - t
+        per = float(np.median(get_s)) * 1e3
+        print(f"external on {card}: DQN's compute_single_action served by a PolicyServerInput to {c['clients']} "
+              f"PolicyClient threads, {c['clients'] * c['episodes']} episodes of the port's CartPole-v1, "
+              f"{len(get_s)} get_action requests in {wall:.2f} s ({len(get_s) / wall:.1f} get_action/s, "
+              f"{(2 * len(get_s) + 2 * c['clients'] * c['episodes']) / wall:.1f} HTTP requests/s all told), "
+              f"{per:.3f} ms median a get_action (the client's HTTP round trip: one forward on the card and one "
+              f"read under the server's policy lock); served actions against the CPU copy's greedy actions: "
+              f"{differ} of {len(batch)} differ (bar 0); {algo._updates - n0} updates on the external episodes in "
+              f"{train_s:.2f} s, metrics {m}")
+        if differ or not all(np.isfinite(v) for v in m.values()) or algo._updates - n0 != c["updates"]:
+            failures.append(f"external: {differ} served actions differ, updates {algo._updates - n0}, metrics {m}")
+        res["serve"] = {"episodes": c["clients"] * c["episodes"], "get_action_requests": len(get_s), "wall_s": wall,
+                        "get_action_per_s": len(get_s) / wall, "get_action_ms_median": per,
+                        "get_action_ms_p90": float(np.percentile(get_s, 90)) * 1e3, "actions_differ": differ,
+                        "train_updates": c["updates"], "train_s": train_s, "metrics": m}
+    finally:
+        server.shutdown()
+        algo.cleanup()
+        if cpu is not None:
+            cpu.cleanup()
+    marks["serve_s"] = time.perf_counter() - t_sec
+
+    # The `rllib train` CLI in a process of its own, on the card.
+    t_sec = time.perf_counter()
+    cmd = [sys.executable, "-m", "ray_tpu_torch.rllib", "train", "--run", "PPO", "--env", "CartPole-v1",
+           "--stop-iters", "1"]
+    if device != "cuda":
+        cmd += ["--config", json.dumps({"device": device, "num_rollout_workers": 1, "train_batch_size": 400})]
+    out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                         timeout=c["cli_timeout"])
+    cli_s = time.perf_counter() - t_sec
+    tail = out.stdout.strip().splitlines()[-2:]
+    print(f"cli: {' '.join(cmd[1:])} exited {out.returncode} in {cli_s:.1f} s; its last lines {tail}")
+    if out.returncode != 0 or not any(line.startswith("iter 1:") for line in tail):
+        failures.append(f"cli: exit {out.returncode}: {out.stderr[-2000:]}")
+    res["cli"] = {"returncode": out.returncode, "s": cli_s, "last_lines": tail}
+    marks["cli_s"] = cli_s
+    res["sections_s"] = marks
+    return res
+
+
 def rllib_phase(torch, card, device="cuda", sizes=None):
     """RLlib on the card (phase 15): (a) PPO on CartPole-v1, CPU rollout
     workers and one learner actor holding the card; (b) the learner at the
@@ -4463,11 +4888,28 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
         lighter.update(rllib_families_launches=j_counts, section_s=time.perf_counter() - t_j)
         res["lighter"] = lighter
         print("(j): " + json.dumps(lighter))
+        t_k = time.perf_counter()
+        mcts = rllib_mcts(torch, rt, card, device, failures)
+        k_end = A.launch_counts()
+        k_counts = {k: k_end[k] - family_counts[k] for k in k_end}
+        family_counts = k_end
+        mcts.update(rllib_families_launches=k_counts, section_s=time.perf_counter() - t_k)
+        res["mcts"] = mcts
+        print("(k): " + json.dumps(mcts))
+        t_l = time.perf_counter()
+        external = rllib_external(torch, card, device, failures)
+        l_end = A.launch_counts()
+        l_counts = {k: l_end[k] - family_counts[k] for k in l_end}
+        family_counts = l_end
+        external.update(rllib_families_launches=l_counts, section_s=time.perf_counter() - t_l)
+        res["external"] = external
+        print("(l): " + json.dumps(external))
         print(f"rllib families: flash kernel launches in this process over sections (d)-(g): {dg_counts}, over "
-              f"(h): {h_counts}, over (i): {i_counts}, over (j): {j_counts}")
+              f"(h): {h_counts}, over (i): {i_counts}, over (j): {j_counts}, over (k): {k_counts}, over (l): "
+              f"{l_counts}")
         if any(family_counts.values()):
-            failures.append(f"rllib families: the value, policy-gradient, continuous, model-based and lighter paths "
-                            f"launched {family_counts}")
+            failures.append(f"rllib families: the value, policy-gradient, continuous, model-based, lighter, MCTS "
+                            f"and external paths launched {family_counts}")
         pids |= {w.pid for w in rt._global_node.raylet.workers.values() if w.pid}
         marks["families_s"] = time.perf_counter() - t
     finally:

@@ -10,3 +10,5 @@ from ray_tpu_torch.rllib.env.vector_env import (  # noqa: F401
     VectorEnv,
     make_vector_env,
 )
+from ray_tpu_torch.rllib.env.external_env import ExternalEnv, ExternalEnvRunner  # noqa: F401
+from ray_tpu_torch.rllib.env.policy_server import PolicyClient, PolicyServerInput  # noqa: F401

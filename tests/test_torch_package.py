@@ -44,7 +44,12 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.rllib.algorithms.apex_ddpg.apex_ddpg, ray_tpu_torch.rllib.algorithms.maddpg.maddpg, "
         "ray_tpu_torch.rllib.env.pendulum, ray_tpu_torch.rllib.env.multi_agent_env, "
         "ray_tpu_torch.rllib.env.meta_env, ray_tpu_torch.rllib.algorithms.maml.maml, "
-        "ray_tpu_torch.rllib.algorithms.mbmpo.mbmpo, ray_tpu_torch.rllib.algorithms.dreamerv3.dreamerv3\n"
+        "ray_tpu_torch.rllib.algorithms.mbmpo.mbmpo, ray_tpu_torch.rllib.algorithms.dreamerv3.dreamerv3, "
+        "ray_tpu_torch.rllib.algorithms.alpha_zero.alpha_zero, "
+        "ray_tpu_torch.rllib.algorithms.leela_chess_zero.leela_chess_zero, "
+        "ray_tpu_torch.rllib.algorithms.alpha_star.alpha_star, ray_tpu_torch.rllib.env.board_env, "
+        "ray_tpu_torch.rllib.env.two_player, ray_tpu_torch.rllib.env.external_env, "
+        "ray_tpu_torch.rllib.env.policy_server, ray_tpu_torch.rllib.train\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -101,7 +106,10 @@ def test_no_source_imports_jax_or_ray_tpu():
                    "rllib/algorithms/apex_ddpg/apex_ddpg.py", "rllib/algorithms/maddpg/maddpg.py",
                    "rllib/env/pendulum.py", "rllib/env/multi_agent_env.py", "rllib/env/meta_env.py",
                    "rllib/algorithms/maml/maml.py", "rllib/algorithms/mbmpo/mbmpo.py",
-                   "rllib/algorithms/dreamerv3/dreamerv3.py"):
+                   "rllib/algorithms/dreamerv3/dreamerv3.py", "rllib/algorithms/alpha_zero/alpha_zero.py",
+                   "rllib/algorithms/leela_chess_zero/leela_chess_zero.py", "rllib/algorithms/alpha_star/alpha_star.py",
+                   "rllib/env/board_env.py", "rllib/env/two_player.py", "rllib/env/external_env.py",
+                   "rllib/env/policy_server.py", "rllib/train.py", "rllib/__main__.py"):
         assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -170,8 +178,10 @@ def test_rllib_needs_no_gymnasium():
     imports it at module level, and with it blocked RLlib imports, builds its
     own CartPole-v1, Pendulum-v1, PointGoalEnv (its tensor reward and
     dynamics), SlateRecEnv and its spaces, builds DreamerV3, MBMPO and SlateQ
-    on them, imports the ES, ARS, QMIX, MARWIL and bandit modules, and names
-    the package for any other env id."""
+    on them, imports the ES, ARS, QMIX, MARWIL and bandit modules, builds
+    TicTacToeEnv, TwoPlayerMatrixEnv and AlphaZero on CartPole-v1 (one
+    iteration), imports the external-env, policy-server and CLI modules, and
+    names the package for any other env id."""
     for path in sorted((ROOT / "ray_tpu_torch").rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
@@ -214,6 +224,18 @@ def test_rllib_needs_no_gymnasium():
         "algo = SlateQConfig().environment(SlateRecEnv).resources(device='cpu').build()\n"
         "assert len(algo.compute_single_action(algo.env.reset(seed=0)[0])) == 2\n"
         "algo.cleanup()\n"
+        "from ray_tpu_torch.rllib import AlphaZeroConfig\n"
+        "from ray_tpu_torch.rllib.env.board_env import TicTacToeEnv\n"
+        "from ray_tpu_torch.rllib.env.two_player import TwoPlayerMatrixEnv\n"
+        "import ray_tpu_torch.rllib.env.external_env, ray_tpu_torch.rllib.env.policy_server, ray_tpu_torch.rllib.train\n"
+        "board = TicTacToeEnv()\n"
+        "assert board.reset().shape == (9,) and board.legal_actions().all() and int(board.action_space.n) == 9\n"
+        "pair = TwoPlayerMatrixEnv({'rounds': 2})\n"
+        "assert pair.reset()[0].shape == (6,) and pair.step(0, 2)[2] == 1.0 and int(pair.action_space.n) == 3\n"
+        "algo = AlphaZeroConfig().environment('CartPole-v1').training(num_sims=4, episodes_per_iter=1, "
+        "updates_per_iter=1, horizon=20).resources(device='cpu').build()\n"
+        "assert algo.step()['timesteps_total'] > 0\n"
+        "algo.cleanup()\n"
         "try:\n"
         "    make('Acrobot-v1')\n"
         "except ImportError as e:\n"
@@ -227,13 +249,22 @@ def test_rllib_needs_no_gymnasium():
 
 
 def test_rllib_exports_exactly_the_ported_algorithms():
-    """ray_tpu_torch.rllib names every ported algorithm with its config, and
-    nothing of the JAX package's that is not ported."""
+    """ray_tpu_torch.rllib names every ported algorithm with its config: all
+    30 algorithm directories of the JAX package's RLlib are ported, and the
+    external-env and policy-server classes are exported where the
+    reference's are."""
     import ray_tpu_torch.rllib as trl
+    import ray_tpu_torch.rllib.env as tenv
+    from ray_tpu_torch.rllib.train import available_algorithms
 
-    ported = ["A2C", "A3C", "APPO", "ARS", "ApexDDPG", "ApexDQN", "BC", "CQL", "CRR", "DDPG", "DDPPO", "DQN", "DT",
-              "DreamerV3", "ES", "IMPALA", "MADDPG", "MAML", "MARWIL", "MBMPO", "PG", "PPO", "QMIX", "R2D2", "SAC",
-              "SimpleQ", "SlateQ", "TD3"]
+    ported = ["A2C", "A3C", "APPO", "ARS", "AlphaStar", "AlphaZero", "ApexDDPG", "ApexDQN", "BC", "CQL", "CRR",
+              "DDPG", "DDPPO", "DQN", "DT", "DreamerV3", "ES", "IMPALA", "LeelaChessZero", "MADDPG", "MAML", "MARWIL",
+              "MBMPO", "PG", "PPO", "QMIX", "R2D2", "SAC", "SimpleQ", "SlateQ", "TD3"]
+    dirs = sorted(p.name for p in (ROOT / "ray_tpu" / "rllib" / "algorithms").iterdir()
+                  if p.is_dir() and (p / "__init__.py").exists())
+    assert len(dirs) == 30
+    for name in dirs:
+        assert (ROOT / "ray_tpu_torch" / "rllib" / "algorithms" / name / "__init__.py").exists(), name
     configs = sorted(n[: -len("Config")] for n in dir(trl) if n.endswith("Config") and n != "AlgorithmConfig")
     assert configs == sorted(ported + ["Bandit"])
     for name in ported:
@@ -244,8 +275,10 @@ def test_rllib_exports_exactly_the_ported_algorithms():
     assert trl.BanditConfig().algo_class is trl.BanditLinUCB
     assert trl.BanditLinTS.get_default_config().algo_class is trl.BanditLinTS
     assert trl.MultiAgentEnv is trl.env.multi_agent_env.MultiAgentEnv and callable(trl.make_multi_agent)
-    for name in ("AlphaZero", "AlphaStar", "LeelaChessZero", "ExternalEnv", "PolicyClient"):
-        assert not hasattr(trl, name), name
+    assert trl.ExternalEnv is tenv.ExternalEnv and trl.ExternalEnvRunner is tenv.ExternalEnvRunner
+    assert tenv.PolicyClient.__module__ == "ray_tpu_torch.rllib.env.policy_server"
+    assert tenv.PolicyServerInput.__module__ == "ray_tpu_torch.rllib.env.policy_server"
+    assert available_algorithms() == sorted(ported + ["BanditLinTS", "BanditLinUCB"])
 
 
 def test_worker_runtime_imports_no_torch():
@@ -459,6 +492,18 @@ def test_entry_points_raise_without_a_card():
             pass
 
     BanditLinUCB.get_default_config().environment(OneArm).build().cleanup()
+    # The MCTS family: AlphaZero's and LC0's networks and AlphaStar's league on
+    # the card; each raises before it makes an env.
+    from ray_tpu_torch.rllib import AlphaStarConfig, AlphaZeroConfig, LeelaChessZeroConfig
+    from ray_tpu_torch.rllib.env.board_env import TicTacToeEnv
+    from ray_tpu_torch.rllib.env.two_player import TwoPlayerMatrixEnv
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AlphaZeroConfig().environment("CartPole-v1").build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LeelaChessZeroConfig().environment(TicTacToeEnv).build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AlphaStarConfig().environment(TwoPlayerMatrixEnv).build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Policy.from_spaces(Box(-1.0, 1.0, (4,)), Discrete(2))
 
