@@ -9,7 +9,8 @@ line:
 1. device: the card's name and power limit (nvidia-smi) and torch's name.
 2. build: nvcc builds the flash-attention kernels from ops/csrc (time and
    -Xptxas -v output), then each bf16 kernel's registers, shared memory and
-   blocks per SM at the main head width, as the card's runtime reports them.
+   blocks per SM at the main head width, and each f32 kernel's at every
+   head width, as the card's runtime reports them.
 3. kernels vs plain: each kernel against its plain PyTorch version on the same
    inputs, bf16 and f32 at the main path's shapes plus edge cases, with the
    port's own bars (ops/attention.py MATCH_TOL); the forward without LSE
@@ -212,12 +213,19 @@ line:
    iterations) with every launch counted (2 of each kernel an update, 2
    forwards an evaluation step), ms an update; and the forward kernel at DT's
    shape (f32 B 64, T 60, H 2, D 32, causal, with LSE) against its plain
-   version, SDPA in f32 and its bound at the f32 (non-tensor-core) peak, and
-   the dK/dV and dQ kernels there likewise (beside the plain backward and
-   SDPA's backward in f32, each computing dq, dk and dv). An "rllib: {...}"
-   line; the kernels line gains rows "flash_fwd_dt", "flash_bwd_dkv_dt" and
-   "flash_bwd_dq_dt", which carry DT's launches as "rllib_launches" (the
-   f32 kernels; the other rows' "rllib_launches" are 0). In (a)'s cluster,
+   version, SDPA in f32 and its bound at the f32-accurate rate of its route
+   (3xTF32: a third of the TF32 tensor-core peak; the dK/dV kernel's scalar
+   FMA: the f32 peak), and the dK/dV and dQ kernels there likewise (beside
+   the plain backward and SDPA's backward in f32, each computing dq, dk and
+   dv), each on the device (a CUDA graph of 50 calls replayed: a call at
+   this shape takes its wrapper's host time, longer than its kernel) and a
+   call at a time; then the f32 forward and dQ at the main path's shape (B
+   12, T 1024, H 8, D 128) the same way. An "rllib: {...}" line; the
+   kernels line gains rows "flash_fwd_dt", "flash_bwd_dkv_dt",
+   "flash_bwd_dq_dt", "flash_fwd_f32" and "flash_bwd_dq_f32"; the "_dt" rows
+   carry DT's launches as "launches" and "rllib_launches" (the f32 kernels'),
+   the "_f32" rows none (no path runs the f32 kernels at the main path's
+   shape), and the other rows' "rllib_launches" are 0. In (a)'s cluster,
    init(num_cpus=12, num_gpus=1), before DT: (d) the Podracer weight sync:
    IMPALA on CartPole with weight_sync="device_broadcast" from a learner
    actor holding the card, 2 CPU samplers, 3 iterations, a resize to 4 and
@@ -327,14 +335,21 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 peak without tensor cores (FMA units), at 700 W
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak, at 700 W
 MAIN = dict(B=12, T=1024, H=8, D=128)  # attention shapes of the main path
 STEPS = 10  # timed train steps, after one warm-up step
 PROFILED = 3  # further steps under torch.profiler, after the timed ones
 KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # Which design each kernel's numbers belong to, so a row that keeps an
-# earlier time can be told apart.
+# earlier time can be told apart: the bf16 functions, and the f32 ones.
 DESIGNS = {"flash_fwd": "mma.sync-cp.async", "flash_bwd_dkv": "mma.sync-cp.async",
            "flash_bwd_dq": "mma.sync-cp.async"}
+F32_DESIGNS = {"flash_fwd": "3xtf32-mma.sync-cp.async", "flash_bwd_dkv": "scalar-fma-smem",
+               "flash_bwd_dq": "3xtf32-mma.sync-cp.async"}
+# The least time of an f32 function's work on the route its kernel takes:
+# three TF32 tensor-core products for each f32 one (3xTF32), or scalar FMA.
+F32_PEAKS = {"flash_fwd": PEAK_TF32_FLOPS / 3, "flash_bwd_dkv": PEAK_F32_FLOPS, "flash_bwd_dq": PEAK_TF32_FLOPS / 3}
+F32_MAIN_KERNELS = ("flash_fwd", "flash_bwd_dq")  # timed at the main path's shape in f32 too
 # Kinds of device work in a train step, by words in the kernel's name (the
 # first group that matches; "other" for none).
 PROFILE_GROUPS = (
@@ -568,17 +583,21 @@ def device_phase(torch):
 def build_phase():
     _phase("build")
     from ray_tpu_torch.ops._build import load_kernels
+    from ray_tpu_torch.ops.attention import HEAD_DIMS
 
     k = load_kernels()
     print(f"built {k.path} in {k.seconds:.1f} s" if k.seconds else f"cached {k.path}")
     for line in k.log.splitlines():
         print("  " + line.strip())
     info = {name: k.info(name, MAIN["D"]) for name in KERNELS}
-    for name, i in info.items():
-        print(f"{name} bf16 D{MAIN['D']}: {i['regs']} registers/thread, {i['smem_bytes']} B shared memory/block, "
+    # The f32 functions at every head width (DT's, the f32 path's user, is 32).
+    f32_info = {(name, D): k.info(name, D, bf16=False) for D in HEAD_DIMS for name in KERNELS}
+    for (name, dt, D), i in [((n, "bf16", MAIN["D"]), x) for n, x in info.items()] + [
+            ((n, "f32", D), x) for (n, D), x in f32_info.items()]:
+        print(f"{name} {dt} D{D}: {i['regs']} registers/thread, {i['smem_bytes']} B shared memory/block, "
               f"{i['threads']} threads/block, {i['blocks_per_sm']} block(s)/SM "
               f"({i['blocks_per_sm'] * i['threads'] // 32} warps), {i['local_bytes']} B local/thread")
-    return info
+    return info, f32_info
 
 
 def _inputs(torch, seed, dtype, B, Tq, Tk, H, D):
@@ -642,6 +661,8 @@ def kernels_phase(torch):
         if (name, dt) == ("dt", "f32"):
             errs.update({"flash_fwd_dt": (m["out"], m["lse"]), "flash_bwd_dkv_dt": (m["dk"], m["dv"]),
                          "flash_bwd_dq_dt": (m["dq"],)})
+        if (name, dt) == ("main", "f32"):
+            errs.update({"flash_fwd_f32": (m["out"], m["lse"]), "flash_bwd_dq_f32": (m["dq"],)})
         del q, k, v, dout, out_ref, lse_ref, dq_ref, dk_ref, dv_ref, out, out_primal, lse, dq, dk, dv, again
     if failures:
         raise AssertionError("kernel disagrees with its plain version: " + "; ".join(failures))
@@ -911,6 +932,36 @@ def _time_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(torch, fn, calls, replays, stream=None):
+    """The device's ms a call of `fn`: `calls` calls captured in one CUDA
+    graph, replayed `replays` times between events. Where a call's kernels
+    take less time than its host code (a Python wrapper, PyTorch's dispatch),
+    _time_ms measures the host; this measures the kernels. The warm-up and
+    the capture run on `stream` (a new side stream if None)."""
+    side = stream or torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graph asks
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / replays / calls
+    del graph
+    return ms
 
 
 def timings_phase(torch, card, counts, errs, info, in_step):
@@ -4734,16 +4785,88 @@ def rllib_external(torch, card, device, failures) -> dict:
     return res
 
 
+def f32_kernel_rows(torch, A, card, counts, label, shape, kernels, calls, replays, iters):
+    """Rows of the kernels line for the f32 functions `kernels` at one shape
+    (B, T, H, D; causal, the forward with LSE), named "<kernel>_<label>":
+    each kernel's device ms (a CUDA graph of `calls` calls, _graph_ms) and
+    ms a call (`iters` calls between events, host code included), beside its
+    plain version and SDPA in f32 timed the same two ways, and its bound at
+    the f32-accurate rate of its route (F32_PEAKS). `counts` are the launches
+    of the path that runs them."""
+    import torch.nn.functional as F
+
+    B, T, H, D = shape["B"], shape["T"], shape["H"], shape["D"]
+    q, k, v, dout = _inputs(torch, 300, torch.float32, B, T, T, H, D)
+    scale = D**-0.5
+    out, lse = A.flash_fwd_cuda(q, k, v, True, scale, 0, save_lse=True)
+    delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v, dout))
+    # SDPA's backward runs on the stream its forward ran on: one side stream
+    # for that forward, the backward's graph capture and its timed calls.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    launch = {"flash_fwd": lambda: A.flash_fwd_cuda(q, k, v, True, scale, 0, save_lse=True),
+              "flash_bwd_dkv": lambda: A.flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, True, scale, 0),
+              "flash_bwd_dq": lambda: A.flash_bwd_dq_cuda(q, k, v, dout, lse, delta, True, scale, 0)}
+    plain = {"fwd": lambda: A._plain_flash_fwd(q, k, v, True, scale, 0),
+             "bwd": lambda: A._plain_flash_bwd(q, k, v, out, lse, dout, True, scale, 0)}
+    library = {"fwd": sdpa_fwd, "bwd": lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)}
+    plain_ms = {w: _graph_ms(torch, fn, max(1, calls // 5), replays) for w, fn in plain.items()}
+    lib_ms = {"fwd": _graph_ms(torch, library["fwd"], calls, replays),
+              "bwd": _graph_ms(torch, library["bwd"], calls, replays, stream=side)}
+    lib_call_ms = {"fwd": _time_ms(torch, library["fwd"], iters)}
+    with torch.cuda.stream(side):
+        lib_call_ms["bwd"] = _time_ms(torch, library["bwd"], iters)
+    pairs = B * H * T * (T + 1) // 2
+    tensor, vec = B * T * H * D * 4, B * H * T * 4  # one f32 [B, T, H, D] tensor; one f32 [B, H, T] row vector
+    work = {  # kernel: (FLOPs, bytes, which plain and library call, what they compute)
+        "flash_fwd": (4 * D * pairs, 4 * tensor + vec, "fwd", ("out+lse", "out")),  # QK^T, PV | q k v -> out, lse
+        "flash_bwd_dkv": (8 * D * pairs, 6 * tensor + 2 * vec, "bwd", ("dq+dk+dv", "dq+dk+dv")),  # S, dP, dV, dK
+        "flash_bwd_dq": (6 * D * pairs, 5 * tensor + 2 * vec, "bwd", ("dq+dk+dv", "dq+dk+dv")),  # S, dP, dQ
+    }
+    sources = {"flash_fwd": ("flash_fwd.cu", 57), "flash_bwd_dkv": ("flash_bwd.cu", 320),
+               "flash_bwd_dq": ("flash_bwd.cu", 366)}
+    rows = []
+    for kernel in kernels:
+        flops, nbytes, which, (plain_covers, lib_covers) = work[kernel]
+        ms, call_ms = _graph_ms(torch, launch[kernel], calls, replays), _time_ms(torch, launch[kernel], iters)
+        t_ops, t_bytes = flops / F32_PEAKS[kernel] * 1e3, nbytes / PEAK_BYTES * 1e3
+        row = {"name": f"{kernel}_{label}", "kernel": kernel, "route": "cuda", "design": F32_DESIGNS[kernel],
+               "source": f"ray_tpu_torch/ops/csrc/{sources[kernel][0]}",
+               "replaces": f"ray_tpu/ops/attention.py:{sources[kernel][1]}",
+               "shape": f"f32 B{B} T{T} H{H} D{D} causal" + (", LSE" if kernel == "flash_fwd" else ""),
+               "launches": counts[kernel], "max_abs_err": None, "rel_l2_err": None, "ms": ms, "call_ms": call_ms,
+               "plain_ms": plain_ms[which], "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms[which],
+               "library_call_ms": lib_call_ms[which], "plain_covers": plain_covers, "library_covers": lib_covers}
+        rows.append(row)
+        print(f"{kernel} f32 ({row['shape']}) on {card}: {ms:.4f} ms on the device, {call_ms:.4f} ms a call "
+              f"(bound {row['bound_ms']:.5f} ms by {row['bound_by']}: {flops / 1e6:.1f} MFLOP at "
+              f"{F32_PEAKS[kernel] / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB; {row['bound_ms'] / ms:.1%} of bound); "
+              f"plain {plain_ms[which]:.4f} ms ({plain_covers}); library (SDPA, f32) {lib_ms[which]:.4f} ms on the "
+              f"device, {lib_call_ms[which]:.4f} ms a call ({lib_covers})", flush=True)
+    torch.cuda.synchronize()
+    del q, k, v, dout, out, lse, delta, qt, kt, vt, dot, ot
+    torch.cuda.empty_cache()
+    return rows
+
+
 def rllib_phase(torch, card, device="cuda", sizes=None):
     """RLlib on the card (phase 15): (a) PPO on CartPole-v1, CPU rollout
     workers and one learner actor holding the card; (b) the learner at the
     Atari module's shape in this process, against the same update on the
     CPU; (c) the Decision Transformer, its attention on the flash kernels.
     Returns (the flash kernels' launches in the DT run, the kernels line's
-    rows for the three kernels at DT's shape: none on the CPU)."""
+    rows for the three f32 kernels at DT's shape and the f32 forward and dQ
+    at the main path's: none on the CPU)."""
     _phase("rllib")
-    import torch.nn.functional as F
-
     import ray_tpu_torch as rt
     from ray_tpu_torch.ops import attention as A
     from ray_tpu_torch.rllib import DTConfig, PPOConfig
@@ -5093,55 +5216,17 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
     rows = []
     if cuda:
         # The three kernels at DT's shape, as training launches them (f32, the
-        # forward with LSE), beside their plain versions, SDPA in f32 and the
-        # bounds at the f32 (non-tensor-core) peak.
-        B, T, H, D = DT_SHAPE["B"], DT_SHAPE["T"], DT_SHAPE["H"], DT_SHAPE["D"]
-        q, k, v, dout = _inputs(torch, 300, torch.float32, B, T, T, H, D)
-        scale = D**-0.5
-        out, lse = A.flash_fwd_cuda(q, k, v, True, scale, 0, save_lse=True)
-        delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
-        qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v, dout))
-        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        with torch.no_grad():
-            fwd = _time_ms(torch, lambda: A.flash_fwd_cuda(q, k, v, True, scale, 0, save_lse=True), 100)
-            plain_fwd = _time_ms(torch, lambda: A._plain_flash_fwd(q, k, v, True, scale, 0), 50)
-            lib_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 100)
-            dkv = _time_ms(torch, lambda: A.flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, True, scale, 0), 100)
-            dq = _time_ms(torch, lambda: A.flash_bwd_dq_cuda(q, k, v, dout, lse, delta, True, scale, 0), 100)
-            plain_bwd = _time_ms(torch, lambda: A._plain_flash_bwd(q, k, v, out, lse, dout, True, scale, 0), 50)
-        lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), 100)
-        pairs = B * H * T * (T + 1) // 2
-        tensor, vec = B * T * H * D * 4, B * H * T * 4  # one f32 [B, T, H, D] tensor; one f32 [B, H, T] row vector
-        work = {  # row: (kernel, FLOPs, bytes, ms, plain ms, library ms, what plain and library compute)
-            "flash_fwd_dt": ("flash_fwd", 4 * D * pairs, 4 * tensor + vec, fwd, plain_fwd, lib_fwd,
-                             ("out+lse", "out")),  # QK^T, PV | q k v -> out, lse
-            "flash_bwd_dkv_dt": ("flash_bwd_dkv", 8 * D * pairs, 6 * tensor + 2 * vec, dkv, plain_bwd, lib_bwd,
-                                 ("dq+dk+dv", "dq+dk+dv")),  # S, dP, dV, dK | q k v dout lse delta -> dk dv
-            "flash_bwd_dq_dt": ("flash_bwd_dq", 6 * D * pairs, 5 * tensor + 2 * vec, dq, plain_bwd, lib_bwd,
-                                ("dq+dk+dv", "dq+dk+dv")),  # S, dP, dQ | ... -> dq
-        }
-        sources = {"flash_fwd": ("flash_fwd.cu", 57), "flash_bwd_dkv": ("flash_bwd.cu", 320),
-                   "flash_bwd_dq": ("flash_bwd.cu", 366)}
-        for name, (kernel, flops, nbytes, ms, plain_ms, lib_ms, (plain_covers, lib_covers)) in work.items():
-            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-            row = {"name": name, "kernel": kernel, "route": "cuda", "design": DESIGNS[kernel],
-                   "source": f"ray_tpu_torch/ops/csrc/{sources[kernel][0]}",
-                   "replaces": f"ray_tpu/ops/attention.py:{sources[kernel][1]}",
-                   "shape": f"f32 B{B} T{T} H{H} D{D} causal" + (", LSE" if kernel == "flash_fwd" else ""),
-                   "launches": counts[kernel], "max_abs_err": None, "rel_l2_err": None, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms,
-                   "plain_covers": plain_covers, "library_covers": lib_covers}
-            rows.append(row)
-            print(f"{kernel} at DT's shape ({row['shape']}) on {card}: {ms:.4f} ms (bound {row['bound_ms']:.5f} ms "
-                  f"by {row['bound_by']}: {flops / 1e6:.1f} MFLOP at the f32 peak {PEAK_F32_FLOPS / 1e12:.0f} "
-                  f"TFLOP/s, {nbytes / 1e6:.2f} MB; {row['bound_ms'] / ms:.1%} of bound), plain {plain_ms:.4f} ms "
-                  f"({plain_covers}), library (SDPA, f32) {lib_ms:.4f} ms ({lib_covers})")
+        # forward with LSE); then the redesigned f32 forward and dQ at the main
+        # path's shape, where the operations bound and the bytes bound part.
+        # No path runs them at that shape: those rows book no launches.
+        rows = f32_kernel_rows(torch, A, card, counts, "dt", DT_SHAPE, KERNELS, calls=50, replays=20, iters=100)
         res["dt"].update(kernel_ms={r["kernel"]: r["ms"] for r in rows},
+                         kernel_call_ms={r["kernel"]: r["call_ms"] for r in rows},
                          kernel_plain_ms={r["kernel"]: r["plain_ms"] for r in rows},
                          kernel_sdpa_ms={r["kernel"]: r["library_ms"] for r in rows},
                          kernel_bound_ms={r["kernel"]: r["bound_ms"] for r in rows})
-        del q, k, v, dout, out, lse, delta, qt, kt, vt, dot, ot
+        rows += f32_kernel_rows(torch, A, card, dict.fromkeys(KERNELS, 0), "f32", MAIN, F32_MAIN_KERNELS, calls=5,
+                                replays=4, iters=20)
     marks["phase_s"] = time.perf_counter() - t0
     res["sections_s"] = marks
     print("rllib: " + json.dumps(res))
@@ -5158,7 +5243,7 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     smi, card = device_phase(torch)
-    info = build_phase()
+    info, f32_info = build_phase()
     errs = kernels_phase(torch)
     counts, in_step, first_loss, step_ms = main_path_phase(torch, smi)
     kernels = timings_phase(torch, smi, counts, errs, info, in_step)
@@ -5183,15 +5268,22 @@ def main() -> int:
         row["data_launches"] = data["predict"]["flash_fwd"] if row["name"] == "flash_fwd_vit" else \
             data["ingest"].get(row["name"], 0)
     rllib_counts, dt_rows, family_counts = rllib_phase(torch, smi)
-    # DT trains in f32: its launches are the f32 kernels', booked in the DT rows
-    # (the earlier rows time the bf16 kernels, other functions of the sources).
+    # DT trains in f32: its launches are the f32 kernels', booked in the f32
+    # rows at its shape (the earlier rows time the bf16 kernels, other
+    # functions of the sources; no path runs the f32 kernels at the main
+    # path's shape).
     for row in kernels:
         row["rllib_launches"] = 0
     for row in kernels + dt_rows:
         row["rllib_families_launches"] = family_counts[row.get("kernel", row["name"])]
     for row in dt_rows:
+        on_dt = row["name"].endswith("_dt")
+        i = f32_info[row["kernel"], DT_SHAPE["D"] if on_dt else MAIN["D"]]
         row.update(max_abs_err=max(e["max_abs"] for e in errs[row["name"]]),
-                   rel_l2_err=max(e["rel_l2"] for e in errs[row["name"]]), rllib_launches=rllib_counts[row["kernel"]])
+                   rel_l2_err=max(e["rel_l2"] for e in errs[row["name"]]),
+                   rllib_launches=rllib_counts[row["kernel"]] if on_dt else 0,
+                   regs=i["regs"], smem_bytes=i["smem_bytes"], blocks_per_sm=i["blocks_per_sm"],
+                   local_bytes=i["local_bytes"])
     kernels += dt_rows
     print(f"script wall time {time.perf_counter() - t0:.1f} s (from the device phase; imports before it)")
     print(smi)

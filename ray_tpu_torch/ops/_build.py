@@ -55,10 +55,10 @@ _SIGNATURES = {
     "rtt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
     # q, k, v, dout, lse, delta, dq | ...
     "rtt_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
-    # D, info[5]: registers, shared memory, blocks per SM, threads, local bytes
-    "rtt_flash_fwd_info": [_I, _P],
-    # kernel (0 dK/dV, 1 dQ), D, info[5]
-    "rtt_flash_bwd_info": [_I, _I, _P],
+    # is_bf16, D, info[5]: registers, shared memory, blocks per SM, threads, local bytes
+    "rtt_flash_fwd_info": [_I, _I, _P],
+    # kernel (0 dK/dV, 1 dQ), is_bf16, D, info[5]
+    "rtt_flash_bwd_info": [_I, _I, _I, _P],
     "rtt_error_string": [_I],
 }
 _RESTYPES = {"rtt_error_string": ctypes.c_char_p}
@@ -77,16 +77,17 @@ class Kernels:
             msg = self.lib.rtt_error_string(code).decode()
             raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
-    def info(self, kernel: str, D: int) -> dict[str, int]:
-        """Resources of a bf16 kernel ("flash_fwd", "flash_bwd_dkv" or
-        "flash_bwd_dq") at head width D on the current device: registers per
-        thread, shared memory per block, blocks per SM, threads per block and
-        local (spilled) bytes per thread."""
+    def info(self, kernel: str, D: int, bf16: bool = True) -> dict[str, int]:
+        """Resources of a kernel ("flash_fwd", "flash_bwd_dkv" or
+        "flash_bwd_dq"; the bf16 one, or with ``bf16=False`` the f32 one) at
+        head width D on the current device: registers per thread, shared
+        memory per block, blocks per SM, threads per block and local
+        (spilled) bytes per thread."""
         out = (ctypes.c_int * 5)()
         if kernel == "flash_fwd":
-            code = self.lib.rtt_flash_fwd_info(D, out)
+            code = self.lib.rtt_flash_fwd_info(int(bf16), D, out)
         else:
-            code = self.lib.rtt_flash_bwd_info(("flash_bwd_dkv", "flash_bwd_dq").index(kernel), D, out)
+            code = self.lib.rtt_flash_bwd_info(("flash_bwd_dkv", "flash_bwd_dq").index(kernel), int(bf16), D, out)
         self.check(code, f"{kernel} info")
         return dict(zip(("regs", "smem_bytes", "blocks_per_sm", "threads", "local_bytes"), out))
 

@@ -69,11 +69,29 @@
 //   twice the rows, fit once per SM and read slower on the card
 //   (ops/tune_kernels.py; PERF.md).
 //
-// f32 (flash_bwd_dkv_kernel, flash_bwd_dq_kernel): the first version, kept
-// for f32 inputs only, with scalar FMA products on tiles, scores and
-// accumulators all in shared memory (flash_common.cuh). No tensor-core path
-// on this card computes full f32.
-#include "flash_sm90.cuh"
+// f32 dQ (flash_bwd_dq_kernel): the bf16 dQ's design on f32 tiles, with its
+// three products in the 3xTF32 form on mma.sync.m16n8k8 (flash_tf32.cuh), to
+// ~2^-21 of each f32 product (one TF32 product would break the f32 bar),
+// each k-chunk's sum in a fresh fragment added by f32 adds. The tensor
+// cores' accumulator rounds toward zero: dQ summed there over the keys reads
+// 4.3e-6 rel_l2 at the main shape against 6.0e-7, and S and dP summed there
+// over D, as the forward's S, 2.5e-6 with elem 8.1e-5 of the 1e-4 bar, since
+// dS = P (dP - Delta) cancels (ops/tune_kernels.py --f32). S, dP, P and dS
+// stay in registers as f32 fragments, dS is split like any operand (never
+// rounded to a narrower type), Q and dO are loaded once and K/V tiles stream
+// through the two-stage cp.async ring into XOR-swizzled f32 tiles; one K tile
+// is the B operand of S (by ldmatrix) and of dQ += dS K (scalar loads at rows
+// 2t, 2t+1).
+// - K/V stages of 64 keys at D 32 and 64, 16 at D 128. Registers, shared
+//   memory and blocks per SM (rtt_flash_bwd_info): D 32 190, 48 KB, 2
+//   blocks; D 64 255 with 56 B spilled, 96 KB, 2; D 128 197, 96 KB, 2.
+//   32-key stages at D 128 take 128 KB (one block per SM) and spill 80 B,
+//   and read slower (ops/tune_kernels.py --f32; PERF.md).
+//
+// f32 dK/dV (flash_bwd_dkv_kernel): still the first version, with scalar FMA
+// products on tiles, scores and accumulators all in shared memory
+// (flash_common.cuh), in blocks of 2 warps.
+#include "flash_tf32.cuh"
 
 namespace rtt {
 
@@ -82,13 +100,6 @@ constexpr size_t dkv_smem_bytes() {
   constexpr int BQ = kF32Tile, BK = kF32Tile;
   // K, V, Q, dO; P^T, dS^T, S^T, dP^T; dK, dV; lse, Delta.
   return sizeof(float) * (2 * BK * D + 2 * BQ * D + 4 * BK * BQ + 2 * BK * D + 2 * BQ);
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  constexpr int BQ = kF32Tile, BK = kF32Tile;
-  // Q, dO, K, V; dS, S, dP; dQ; lse, Delta.
-  return sizeof(float) * (2 * BQ * D + 2 * BK * D + 3 * BQ * BK + BQ * D + 2 * BQ);
 }
 
 // One block per (key tile, batch*head); warp w owns key rows [16w, 16w+16).
@@ -175,108 +186,30 @@ __global__ void __launch_bounds__(kF32Tile / kStrip * 32)
   store_strip<D>(dv + k_head, dVacc + kw * D, k0 + kw, Tk, stride);
 }
 
-// One block per (query tile, batch*head); warp w owns query rows [16w, 16w+16).
+// The f32 dK/dV kernel.
 template <int D>
-__global__ void __launch_bounds__(kF32Tile / kStrip * 32)
-    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                        const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int H, int Tq, int Tk, float scale, int causal, int window) {
-  constexpr int BQ = kF32Tile, BK = kF32Tile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [BQ, D]
-  float* dOs = Qs + BQ * D;                    // [BQ, D]
-  float* Ks = dOs + BQ * D;                    // [BK, D]
-  float* Vs = Ks + BK * D;                     // [BK, D]
-  float* dS = Vs + BK * D;                     // [BQ, BK]
-  float* S = dS + BQ * BK;                     // [BQ, BK]
-  float* dP = S + BQ * BK;                     // [BQ, BK]
-  float* dQacc = dP + BQ * BK;                 // [BQ, D]
-  float* lse_s = dQacc + BQ * D;               // [BQ]
-  float* delta_s = lse_s + BQ;                 // [BQ]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int stride = H * D;
-  const int offset = Tk - Tq;
-  const size_t q_head = ((size_t)b * Tq * H + h) * D, k_head = ((size_t)b * Tk * H + h) * D;
-
-  load_tile<D>(Qs, q + q_head, q0, BQ, Tq, stride);
-  load_tile<D>(dOs, dout + q_head, q0, BQ, Tq, stride);
-  load_rows(lse_s, lse + (size_t)bh * Tq, q0, BQ, Tq);
-  load_rows(delta_s, delta + (size_t)bh * Tq, q0, BQ, Tq);
-  for (int i = threadIdx.x; i < BQ * D; i += blockDim.x) dQacc[i] = 0.f;
-  __syncthreads();  // a warp may store its strip without entering the loop
-
-  int kt_begin, kt_end;
-  key_tile_range(q0, min(q0 + BQ, Tq) - 1, offset, Tk, BK, causal, window, &kt_begin, &kt_end);
-
-  const int qw = warp * kStrip;  // this warp's first query row in the tile
-  float* Sw = S + qw * BK;
-  float* dPw = dP + qw * BK;
-  float* dSw = dS + qw * BK;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(Ks, k + k_head, k0, BK, Tk, stride);
-    load_tile<D>(Vs, v + k_head, k0, BK, Tk, stride);
-    __syncthreads();
-
-    warp_mm<true, BK, D>(Qs + qw * D, D, Ks, D, Sw, BK, false);    // S = Q K^T
-    warp_mm<true, BK, D>(dOs + qw * D, D, Vs, D, dPw, BK, false);  // dP = dO V^T
-    for (int i = lane; i < kStrip * BK; i += 32) {
-      const int qr = i / BK, c = i % BK;
-      const int row = q0 + qw + qr;
-      const bool vis = row < Tq && visible(row + offset, k0 + c, Tk, causal, window);
-      const float p = vis ? expf(Sw[i] * scale - lse_s[qw + qr]) : 0.f;
-      dSw[i] = p * (dPw[i] - delta_s[qw + qr]) * scale;
-    }
-    __syncwarp();
-    warp_mm<false, D, BK>(dSw, BK, Ks, D, dQacc + qw * D, D, true);  // dQ += dS K
-  }
-
-  store_strip<D>(dq + q_head, dQacc + qw * D, q0 + qw, Tq, stride);
-}
-
-// The f32 kernels: dK/dV when DKV, else dQ.
-template <int D, bool DKV>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                       const float* delta, void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
-                       int causal, int window, cudaStream_t stream) {
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
+                           int causal, int window, cudaStream_t stream) {
   constexpr int TILE = kF32Tile;
-  constexpr int threads = TILE / kStrip * 32;
-  const float *qe = static_cast<const float*>(q), *ke = static_cast<const float*>(k), *ve = static_cast<const float*>(v);
-  const float* de = static_cast<const float*>(dout);
-  if constexpr (DKV) {
-    constexpr size_t smem = dkv_smem_bytes<D>();
-    auto kernel = flash_bwd_dkv_kernel<D>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3((Tk + TILE - 1) / TILE, B * H), threads, smem, stream>>>(
-        qe, ke, ve, de, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, scale, causal, window);
-  } else {
-    constexpr size_t smem = dq_smem_bytes<D>();
-    auto kernel = flash_bwd_dq_kernel<D>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3((Tq + TILE - 1) / TILE, B * H), threads, smem, stream>>>(
-        qe, ke, ve, de, lse, delta, static_cast<float*>(dq), H, Tq, Tk, scale, causal, window);
-  }
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((Tk + TILE - 1) / TILE, B * H), TILE / kStrip * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, scale,
+      causal, window);
   return cudaGetLastError();
 }
 
-template <bool DKV>
-cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                         const float* delta, void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
-                         int causal, int window, cudaStream_t s) {
+cudaError_t dispatch_dkv_f32(int D, const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                             const float* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
+                             int causal, int window, cudaStream_t s) {
   switch (D) {
-    case 32:
-      return launch_bwd<32, DKV>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
-    case 64:
-      return launch_bwd<64, DKV>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
-    case 128:
-      return launch_bwd<128, DKV>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 32: return launch_dkv_f32<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 64: return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 128: return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -556,6 +489,132 @@ cudaError_t dispatch_dq_bf16(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// Keys per ring stage of the f32 dQ: at D 128, 16 keep Q, dO and the ring at
+// 96 KB (two blocks per SM) and the registers under the cap without spills.
+template <int D>
+constexpr int kDqF32BK = D == 128 ? 16 : 64;
+
+template <int D>
+constexpr size_t dq_f32_smem_bytes() {
+  return sizeof(float) * (2 * kDqBQ * D + 2 * 2 * kDqF32BK<D> * D);  // Q, dO, and a two-stage ring of K and V
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads)
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                        const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int Tq, int Tk, float scale, int causal, int window) {
+  constexpr int BQ = kDqBQ, BK = kDqF32BK<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [BQ, D]
+  float* dOs = Qs + BQ * D;                    // [BQ, D]
+  float* Ks = dOs + BQ * D;                    // [2][BK, D]
+  float* Vs = Ks + 2 * BK * D;                 // [2][BK, D]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the last (longest causal) query tiles first
+  const int stride = H * D;
+  const int offset = Tk - Tq;  // bottom-right causal alignment
+  const size_t q_head = ((size_t)b * Tq * H + h) * D;
+  const float* kh = k + ((size_t)b * Tk * H + h) * D;
+  const float* vh = v + ((size_t)b * Tk * H + h) * D;
+
+  int kt_begin, kt_end;
+  key_tile_range(q0, min(q0 + BQ, Tq) - 1, offset, Tk, BK, causal, window, &kt_begin, &kt_end);
+
+  load_tile_f32_async<BQ, D, kDqThreads>(Qs, q + q_head, q0, Tq, stride);
+  load_tile_f32_async<BQ, D, kDqThreads>(dOs, dout + q_head, q0, Tq, stride);
+  if (kt_begin < kt_end) {
+    load_tile_f32_async<BK, D, kDqThreads>(Ks, kh, kt_begin * BK, Tk, stride);
+    load_tile_f32_async<BK, D, kDqThreads>(Vs, vh, kt_begin * BK, Tk, stride);
+  }
+  cp_async_commit();
+
+  const int row_lo = q0 + warp * 16;  // this warp's first query row
+  const int qp_lo = row_lo + offset;  // its position against the keys
+  const float sl2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  // lse (log2 units) and Delta of rows g (index 0) and g + 8 (index 1) of the
+  // warp's strip. Rows past Tq read 0: their Q and dO rows are zero-filled,
+  // so they compute finite values that are never stored.
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + g + 8 * r;
+    lse2[r] = row < Tq ? lse[(size_t)bh * Tq + row] * 1.4426950408889634f : 0.f;
+    del[r] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
+  }
+  float acc[D / 8][4];  // dQ
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+#pragma unroll 1
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    cp_async_wait<0>();  // this thread's copies of tile kt (and Q, dO) have landed ...
+    __syncthreads();     // ... every thread's have, and every warp is done with tile kt - 1
+    if (kt + 1 < kt_end) {  // so tile kt + 1 can fill tile kt - 1's stage while tile kt is used
+      load_tile_f32_async<BK, D, kDqThreads>(Ks + (stage ^ 1) * BK * D, kh, (kt + 1) * BK, Tk, stride);
+      load_tile_f32_async<BK, D, kDqThreads>(Vs + (stage ^ 1) * BK * D, vh, (kt + 1) * BK, Tk, stride);
+    }
+    cp_async_commit();
+
+    const int k0 = kt * BK, k_last = k0 + BK - 1;
+    // A row with no visible key has lse = -inf, and exp(S - lse) = inf: only
+    // the masked loop below, which selects 0 for it, may see such a row. The
+    // mask also covers keys past Tk, which cp.async zero-fills: exp(0 - lse)
+    // is not 0.
+    int tile = row_lo >= Tq ? kSkip : tile_mode(qp_lo, qp_lo + 15, k0, k_last, k_last >= Tk, causal, window);
+    if (tile == kSkip) continue;  // no key of this tile is visible to the warp's rows
+
+    const float* Kt = Ks + stage * BK * D;
+    float s[BK / 8][4], dp[BK / 8][4];
+    mm_abt_tf32<D, BK, true>(s, Qs, warp * 16, Kt, 0);                      // S = Q K^T
+    mm_abt_tf32<D, BK, true>(dp, dOs, warp * 16, Vs + stage * BK * D, 0);  // dP = dO V^T
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[n][e], sl2, -lse2[e >> 1]));
+        if (tile == kMasked) {  // only tiles across the diagonal, the window's left edge or Tk
+          if (!visible(qp_lo + g + (e >> 1) * 8, k0 + n * 8 + 2 * t + (e & 1), Tk, causal, window)) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - del[e >> 1]) * scale;  // dS
+      }
+    }
+    mm_pb_tf32<D, BK>(acc, dp, Kt);  // dQ += dS K
+  }
+  cp_async_wait<0>();  // no copy outlives the block (Q's and dO's, when no key tile is visible)
+
+  // dS carries the scale already: dQ is stored as it is.
+  store_acc_f32<D>(dq + q_head, acc, 1.f, 1.f, row_lo, Tq, stride);
+}
+
+template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                          const float* delta, void* dq, int B, int H, int Tq, int Tk, float scale, int causal,
+                          int window, cudaStream_t stream) {
+  constexpr size_t smem = dq_f32_smem_bytes<D>();
+  auto kernel = flash_bwd_dq_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, (Tq + kDqBQ - 1) / kDqBQ), kDqThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), H, Tq, Tk, scale, causal, window);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dq_f32(int D, const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                            const float* delta, void* dq, int B, int H, int Tq, int Tk, float scale, int causal,
+                            int window, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_dq_f32<32>(q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, scale, causal, window, s);
+    case 64: return launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, scale, causal, window, s);
+    case 128: return launch_dq_f32<128>(q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, scale, causal, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace sm90
 }  // namespace rtt
 
@@ -568,8 +627,7 @@ extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *l = static_cast<const float*>(lse), *d = static_cast<const float*>(delta);
   return is_bf16 ? rtt::sm90::dispatch_dkv_bf16(D, q, k, v, dout, l, d, dk, dv, B, H, Tq, Tk, scale, causal, window, s)
-                 : rtt::dispatch_bwd<true>(D, q, k, v, dout, l, d, nullptr, dk, dv, B, H, Tq, Tk, scale, causal,
-                                           window, s);
+                 : rtt::dispatch_dkv_f32(D, q, k, v, dout, l, d, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
 }
 
 // As rtt_flash_bwd_dkv, writing dq ([B, Tq, H, D]).
@@ -579,21 +637,29 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v, con
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *l = static_cast<const float*>(lse), *d = static_cast<const float*>(delta);
   return is_bf16 ? rtt::sm90::dispatch_dq_bf16(D, q, k, v, dout, l, d, dq, B, H, Tq, Tk, scale, causal, window, s)
-                 : rtt::dispatch_bwd<false>(D, q, k, v, dout, l, d, dq, nullptr, nullptr, B, H, Tq, Tk, scale, causal,
-                                            window, s);
+                 : rtt::sm90::dispatch_dq_f32(D, q, k, v, dout, l, d, dq, B, H, Tq, Tk, scale, causal, window, s);
 }
 
-// A bf16 backward kernel's resources at head width D (kernel 0: dK/dV,
-// 1: dQ), on the current device; info as for rtt_flash_fwd_info.
-extern "C" int rtt_flash_bwd_info(int kernel, int D, int* info) {
+// A backward kernel's resources (kernel 0: dK/dV, 1: dQ) for one type
+// (is_bf16: 1 bfloat16, 0 float32) at head width D, on the current device;
+// info as for rtt_flash_fwd_info.
+extern "C" int rtt_flash_bwd_info(int kernel, int is_bf16, int D, int* info) {
   using namespace rtt::sm90;
-  switch (kernel * 1000 + D) {
-    case 32: return rtt::kernel_info(flash_bwd_dkv_bf16_kernel<32>, dkv_bf16_smem_bytes<32>(), kDkvThreads, info);
-    case 64: return rtt::kernel_info(flash_bwd_dkv_bf16_kernel<64>, dkv_bf16_smem_bytes<64>(), kDkvThreads, info);
-    case 128: return rtt::kernel_info(flash_bwd_dkv_bf16_kernel<128>, dkv_bf16_smem_bytes<128>(), kDkvThreads, info);
-    case 1032: return rtt::kernel_info(flash_bwd_dq_bf16_kernel<32>, dq_bf16_smem_bytes<32>(), kDqThreads, info);
-    case 1064: return rtt::kernel_info(flash_bwd_dq_bf16_kernel<64>, dq_bf16_smem_bytes<64>(), kDqThreads, info);
-    case 1128: return rtt::kernel_info(flash_bwd_dq_bf16_kernel<128>, dq_bf16_smem_bytes<128>(), kDqThreads, info);
+  using rtt::kernel_info;
+  constexpr int kDkvF32Threads = rtt::kF32Tile / rtt::kStrip * 32;
+  switch (kernel * 10000 + is_bf16 * 1000 + D) {
+    case 32: return kernel_info(rtt::flash_bwd_dkv_kernel<32>, rtt::dkv_smem_bytes<32>(), kDkvF32Threads, info);
+    case 64: return kernel_info(rtt::flash_bwd_dkv_kernel<64>, rtt::dkv_smem_bytes<64>(), kDkvF32Threads, info);
+    case 128: return kernel_info(rtt::flash_bwd_dkv_kernel<128>, rtt::dkv_smem_bytes<128>(), kDkvF32Threads, info);
+    case 1032: return kernel_info(flash_bwd_dkv_bf16_kernel<32>, dkv_bf16_smem_bytes<32>(), kDkvThreads, info);
+    case 1064: return kernel_info(flash_bwd_dkv_bf16_kernel<64>, dkv_bf16_smem_bytes<64>(), kDkvThreads, info);
+    case 1128: return kernel_info(flash_bwd_dkv_bf16_kernel<128>, dkv_bf16_smem_bytes<128>(), kDkvThreads, info);
+    case 10032: return kernel_info(flash_bwd_dq_kernel<32>, dq_f32_smem_bytes<32>(), kDqThreads, info);
+    case 10064: return kernel_info(flash_bwd_dq_kernel<64>, dq_f32_smem_bytes<64>(), kDqThreads, info);
+    case 10128: return kernel_info(flash_bwd_dq_kernel<128>, dq_f32_smem_bytes<128>(), kDqThreads, info);
+    case 11032: return kernel_info(flash_bwd_dq_bf16_kernel<32>, dq_bf16_smem_bytes<32>(), kDqThreads, info);
+    case 11064: return kernel_info(flash_bwd_dq_bf16_kernel<64>, dq_bf16_smem_bytes<64>(), kDqThreads, info);
+    case 11128: return kernel_info(flash_bwd_dq_bf16_kernel<128>, dq_bf16_smem_bytes<128>(), kDqThreads, info);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,15 +4,15 @@
 // head's rows are D contiguous elements H*D apart. A block reads them in place;
 // nothing is transposed or copied into a [B*H, T, D] layout first.
 //
-// The f32 kernels (the first version, kept for f32 inputs: no tensor-core
-// path on this card computes full f32) use the tile helpers below: a tile of
-// 16*W rows is owned by a block of W warps, and warp w owns rows [16w, 16w+16)
-// of it for every product and every row-wise step, so the only block-wide
-// barriers are around loading a shared tile. warp_mm multiplies a warp's
-// 16-row strip by a tile in shared memory into a float strip in shared
-// memory with scalar FMA, so an f32 run keeps full f32 precision (no TF32).
-// The bf16 kernels build on flash_sm90.cuh instead; the masks and loop bounds
-// at the end of this file serve both.
+// The f32 dK/dV kernel (the first version; the f32 forward and dQ are
+// redesigned on 3xTF32 tensor-core products, flash_tf32.cuh) uses the tile
+// helpers below: a tile of 16*W rows is owned by a block of W warps, and warp
+// w owns rows [16w, 16w+16) of it for every product and every row-wise step,
+// so the only block-wide barriers are around loading a shared tile. warp_mm
+// multiplies a warp's 16-row strip by a tile in shared memory into a float
+// strip in shared memory with scalar FMA, in full f32. The other kernels
+// build on flash_sm90.cuh and flash_tf32.cuh instead; the masks and loop
+// bounds at the end of this file serve all of them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,8 +22,8 @@
 namespace rtt {
 
 constexpr int kStrip = 16;  // rows per warp
-// Rows of an f32 tile: 32 keep the largest kernel (dK/dV at D = 128) inside
-// one SM's 227 KB of shared memory.
+// Rows of the f32 dK/dV kernel's tiles: 32 keep it inside one SM's 227 KB of
+// shared memory at D = 128.
 constexpr int kF32Tile = 32;
 
 // Copy rows [row0, row0 + rows) of one head into a dense [rows, D] tile,

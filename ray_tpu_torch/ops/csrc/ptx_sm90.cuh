@@ -1,7 +1,9 @@
-// The Hopper (sm_90a) PTX instructions the bf16 flash-attention kernels use,
-// one inline-asm wrapper each: cp.async with its commit groups, ldmatrix and
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate). flash_sm90.cuh builds the
-// tile loads and warp products on them.
+// The Hopper (sm_90a) PTX instructions the flash-attention kernels use, one
+// inline-asm wrapper each: cp.async with its commit groups, ldmatrix,
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate) for the bf16 kernels, and
+// mma.sync.m16n8k8 (tf32 in, f32 accumulate) with cvt.rna.tf32.f32 for the
+// f32 ones. flash_sm90.cuh and flash_tf32.cuh build the tile loads and warp
+// products on them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +52,23 @@ __device__ __forceinline__ float ex2(float x) {
 // c += a * b for one m16n8k16 tile.
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits; to nearest, ties away from zero), as
+// the bits of an f32 whose low 13 bits are 0. The tensor cores read only the
+// top 19 bits of a tf32 operand, so an f32 passed unrounded is truncated.
+__device__ __forceinline__ uint32_t cvt_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// c += a * b for one m16n8k8 tile, tf32 operands (cvt_tf32's bits).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

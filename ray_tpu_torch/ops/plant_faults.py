@@ -7,10 +7,11 @@ catches each one.
 Needs one CUDA card and nvcc. Each fault is a one-line edit of a copy of
 ``ops/csrc``; the copies are written under ``ray_tpu_torch/_build/faults/``
 (never into ``csrc``) and built in parallel. Each copy's three kernels are
-held against the plain versions at the main path's shapes (bf16, B 12,
-T 1024, H 8, D 128, causal) or, for the window fault, with a window of 256.
-The sound kernels go first, so their readings show how far below the bars
-they sit.
+held against the plain versions at the main path's shapes (B 12, T 1024,
+H 8, D 128, causal) in the type its fault is planted in (bf16; f32 for the
+faults of the f32 kernels) or, for the window fault, with a window of 256,
+against the bars of that type. The sound kernels go first, on every case,
+so their readings show how far below the bars they sit.
 
 Prints a line per build, case and kernel, then one JSON line of every
 reading. Exits 1 if the check passes a kernel that a fault breaks, or fails
@@ -61,19 +62,34 @@ FAULTS = {
     "window_off_by_one": (
         "flash_common.cuh", "qpos - kpos < window", "qpos - kpos <= window",
         "window256", ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
+    # The f32 forward and dQ drop the 3xTF32 correction products: one TF32
+    # product (10 mantissa bits) in place of each f32 one, in every product
+    # of both (S = Q K^T, O += P V; dP = dO V^T, dQ += dS K).
+    "f32_one_tf32_product": (
+        "flash_tf32.cuh",
+        "  mma_tf32(c, a_lo, b0_hi, b1_hi);\n  mma_tf32(c, a_hi, b0_lo, b1_lo);\n", "",
+        "main_f32", ("flash_fwd", "flash_bwd_dq")),
+    # The f32 dQ's query tiles from row 512 on skip their second key tile.
+    "dq_f32_skip_key_tile": (
+        "flash_bwd.cu",
+        "k_last, k_last >= Tk, causal, window);\n",
+        "k_last, k_last >= Tk, causal, window);\n    if (kt == kt_begin + 1 && q0 >= 512) tile = kSkip;\n",
+        "main_f32", ("flash_bwd_dq",)),
 }
-CASES = {  # name: (B, T, H, D, causal, window)
-    "main": (12, 1024, 8, 128, True, 0),
-    "window256": (2, 1024, 8, 128, True, 256),
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+CASES = {  # name: (type, B, T, H, D, causal, window)
+    "main": ("bf16", 12, 1024, 8, 128, True, 0),
+    "window256": ("bf16", 2, 1024, 8, 128, True, 256),
+    "main_f32": ("f32", 12, 1024, 8, 128, True, 0),
 }
 OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_bwd_dkv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
 
 
 def _case(name: str, seed: int):
     """Inputs and plain results of one case."""
-    B, T, H, D, causal, window = CASES[name]
+    dtype, B, T, H, D, causal, window = CASES[name]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, dout = (torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    q, k, v, dout = (torch.randn(B, T, H, D, generator=g, device="cuda").to(DTYPES[dtype]) for _ in range(4))
     scale = D**-0.5
     out, lse = A._plain_flash_fwd(q, k, v, causal, scale, window)
     dq, dk, dv = A._plain_flash_bwd(q, k, v, out, lse, dout, causal, scale, window)
@@ -98,7 +114,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
-    print(f"bars (bf16): {A.MATCH_TOL[torch.bfloat16]}")
+    bars = {name: A.MATCH_TOL[dtype] for name, dtype in DTYPES.items()}
+    print(f"bars: {bars}")
 
     builds = {"sound": _build.load_kernels()}
     copies = {name: _build.edited_copy(_build.BUILD_DIR / "faults" / name / "csrc", [spec[:3]])
@@ -110,12 +127,13 @@ def main() -> int:
     report, wrong = [], []
     for i, case in enumerate(CASES):
         args, want = _case(case, seed=i)
+        dtype = DTYPES[CASES[case][0]]
         for name, kernels in builds.items():
             if name != "sound" and FAULTS[name][3] != case:
                 continue
             broken = FAULTS[name][4] if name != "sound" else ()
             for kern, outs in _readings(kernels, args, want).items():
-                over = [f"{o}: {', '.join(x)}" for o, m in outs.items() if (x := A.over_tolerance(m, torch.bfloat16))]
+                over = [f"{o}: {', '.join(x)}" for o, m in outs.items() if (x := A.over_tolerance(m, dtype))]
                 caught = bool(over)
                 if caught != (kern in broken):
                     wrong.append(f"{name}/{case}/{kern}: {'caught' if caught else 'passed'}")
@@ -125,7 +143,7 @@ def main() -> int:
                 report.append({"build": name, "case": case, "kernel": kern, "caught": caught, "readings": outs})
         del args, want
         torch.cuda.empty_cache()
-    print(json.dumps({"device": smi, "bars": A.MATCH_TOL[torch.bfloat16], "results": report}))
+    print(json.dumps({"device": smi, "bars": bars, "results": report}))
     if wrong:
         print("plant_faults: the check misjudged " + "; ".join(wrong), file=sys.stderr)
         return 1

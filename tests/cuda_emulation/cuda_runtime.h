@@ -5,7 +5,7 @@
 #pragma once
 
 #include <array>
-#include <barrier>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -78,6 +78,12 @@ inline float emu_bf16_float(uint32_t bits) {
 inline __nv_bfloat16 __float2bfloat16(float f) { return {emu_bf16_bits(f)}; }
 inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) { return {{emu_bf16_bits(lo)}, {emu_bf16_bits(hi)}}; }
 
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+
 struct uint4 {
   unsigned x, y, z, w;
 };
@@ -85,21 +91,52 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return
 struct float2 {
   float x, y;
 };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
+// A barrier whose waiters sleep on the generation word (a futex) instead of
+// spinning: a block's threads far outnumber the cores, and a spinning waiter
+// holds back the threads it waits for.
+class EmuBarrier {
+ public:
+  explicit EmuBarrier(int n) : n_(n) {}
+  void arrive_and_wait() {
+    const unsigned gen = gen_.load(std::memory_order_acquire);
+    if (count_.fetch_add(1, std::memory_order_acq_rel) + 1 == n_) {
+      count_.store(0, std::memory_order_relaxed);
+      gen_.fetch_add(1, std::memory_order_release);
+      gen_.notify_all();
+      return;
+    }
+    while (gen_.load(std::memory_order_acquire) == gen) gen_.wait(gen, std::memory_order_acquire);
+  }
+
+ private:
+  const int n_;
+  std::atomic<int> count_{0};
+  std::atomic<unsigned> gen_{0};
+};
+
 struct EmuBlock {
-  std::barrier<> bar;
-  std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
-  std::vector<std::array<std::array<uint32_t, 8>, 32>> exchange;  // per warp: 8 words a lane
-  explicit EmuBlock(int threads) : bar(threads), exchange(threads / 32) {
-    for (int w = 0; w < threads / 32; ++w) warp_bars.emplace_back(new std::barrier<>(32));
+  EmuBarrier bar;
+  std::vector<std::unique_ptr<EmuBarrier>> warp_bars;
+  // Per warp two buffers of 8 words a lane, used in turn by successive
+  // collectives: a lane writes one only after the barrier of the collective
+  // that used the other, which every lane passes after its reads of the
+  // buffer before it, so one barrier per collective suffices.
+  std::vector<std::array<std::array<uint32_t, 8>, 32>> exchange;
+  explicit EmuBlock(int threads) : bar(threads), exchange(threads / 32 * 2) {
+    for (int w = 0; w < threads / 32; ++w) warp_bars.emplace_back(new EmuBarrier(32));
   }
 };
 inline thread_local EmuBlock* emu_block;
 inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_block->warp_bars[threadIdx.x / 32]->arrive_and_wait(); }
-inline std::array<std::array<uint32_t, 8>, 32>& emu_exchange() { return emu_block->exchange[threadIdx.x / 32]; }
+inline thread_local unsigned emu_collectives;  // collectives this thread has entered
+inline std::array<std::array<uint32_t, 8>, 32>& emu_exchange() {
+  return emu_block->exchange[threadIdx.x / 32 * 2 + (emu_collectives++ & 1)];
+}
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   auto& x = emu_exchange();
   const int lane = threadIdx.x & 31;
@@ -107,7 +144,6 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   __syncwarp();
   float r;
   std::memcpy(&r, &x[lane ^ mask][0], 4);
-  __syncwarp();
   return r;
 }
 

@@ -6,12 +6,16 @@ The kernels run for real only on a card (``tests/test_torch_kernels_gpu.py``,
 ``chip_smoke.py``). Here g++ compiles the same sources, ``ops/csrc``, with
 ``tests/cuda_emulation/`` in place of the CUDA headers and of
 ``ptx_sm90.cuh``: each block's threads run as host threads, the barriers are
-barriers, and ldmatrix, mma.sync and the shuffles exchange values through
-per-warp buffers by the PTX ISA's fragment layouts; cp.async copies at once.
+barriers, and ldmatrix, mma.sync (m16n8k16 bf16, m16n8k8 tf32) and the
+shuffles exchange values through per-warp buffers by the PTX ISA's fragment
+layouts; cvt.rna.tf32.f32 rounds as the card does, an mma reads only a tf32
+operand's top 19 bits and rounds its sum toward zero; cp.async copies at
+once.
 So this checks what the kernels compute (fragment layouts, swizzled
 addresses, the diagonal split and its masks, tile bounds, ragged tails, the
-online softmax, the no-LSE variant, rows with no visible key), not their
-timing or memory ordering. The bars are the card's, ``attention.MATCH_TOL``.
+online softmax, the no-LSE variant, rows with no visible key, the f32
+kernels' 3xTF32 split and permuted contraction), not their timing or memory
+ordering. The bars are the card's, ``attention.MATCH_TOL``.
 Skips where there is no g++ that builds C++20.
 """
 
@@ -71,18 +75,22 @@ def lib(tmp_path_factory):
     return lib
 
 
-CASES = pytest.mark.parametrize(
-    "B,Tq,Tk,H,D,causal,window",
-    [
-        (1, 130, 130, 1, 128, True, 0),  # D 128, a ragged tail of 2 rows and keys
-        (1, 200, 200, 2, 64, True, 0),  # two heads, [B, T, H, D] strides
-        (1, 96, 256, 1, 64, True, 0),  # Tq < Tk: bottom-right offset 160
-        (1, 256, 96, 1, 32, True, 0),  # Tq > Tk: rows with no visible key give 0 and LSE -inf
-        (1, 300, 300, 1, 32, True, 70),  # sliding window: its left edge masked, tiles behind it skipped
-        (1, 150, 190, 1, 64, False, 0),  # non-causal, ragged in both lengths
-        (1, 200, 90, 1, 64, True, 0),  # Tq > Tk by 110, no multiple of 16: a warp whose rows are part blind
-    ],
-)
+_CASES = [
+    (1, 130, 130, 1, 128, True, 0),  # D 128, a ragged tail of 2 rows and keys
+    (1, 200, 200, 2, 64, True, 0),  # two heads, [B, T, H, D] strides
+    (1, 96, 256, 1, 64, True, 0),  # Tq < Tk: bottom-right offset 160
+    (1, 256, 96, 1, 32, True, 0),  # Tq > Tk: rows with no visible key give 0 and LSE -inf
+    (1, 300, 300, 1, 32, True, 70),  # sliding window: its left edge masked, tiles behind it skipped
+    (1, 150, 190, 1, 64, False, 0),  # non-causal, ragged in both lengths
+    (1, 200, 90, 1, 64, True, 0),  # Tq > Tk by 110, no multiple of 16: a warp whose rows are part blind
+]
+CASES = pytest.mark.parametrize("B,Tq,Tk,H,D,causal,window", _CASES)
+# The f32 kernels also at the Decision Transformer's shape (the f32 path's
+# user: T 60 inside one tile, D 32, two heads), at batch 2; and on rows of
+# 1024 keys, where a sum kept in the tensor cores' accumulator (which rounds
+# toward zero) would drift past the f32 bar.
+F32_CASES = pytest.mark.parametrize(
+    "B,Tq,Tk,H,D,causal,window", _CASES + [(2, 60, 60, 2, 32, True, 0), (1, 64, 1024, 1, 128, False, 0)])
 
 
 def _case(dtype, B, Tq, Tk, H, D, causal, window):
@@ -138,8 +146,14 @@ def test_emulated_bf16_dq_matches_plain(lib, B, Tq, Tk, H, D, causal, window):
     _dq(lib, torch.bfloat16, B, Tq, Tk, H, D, causal, window)
 
 
-@CASES
+@F32_CASES
 def test_emulated_f32_kernels_match_plain(lib, B, Tq, Tk, H, D, causal, window):
-    """The f32 path (scalar FMA through shared memory), all three kernels."""
+    """The f32 forward (3xTF32 on mma.sync) and dK/dV (scalar FMA through
+    shared memory)."""
     _forward_and_dkv(lib, torch.float32, B, Tq, Tk, H, D, causal, window)
+
+
+@F32_CASES
+def test_emulated_f32_dq_matches_plain(lib, B, Tq, Tk, H, D, causal, window):
+    """The f32 dQ (3xTF32 on mma.sync)."""
     _dq(lib, torch.float32, B, Tq, Tk, H, D, causal, window)

@@ -15,12 +15,15 @@ import pytest
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.plant_faults import CASES, FAULTS, OUTPUTS
 
-# The kernel function each wrapper launches for bf16 inputs, where the faults
-# are planted.
-_BF16_KERNEL = {
-    "flash_fwd": "flash_fwd_bf16_kernel",
-    "flash_bwd_dkv": "flash_bwd_dkv_bf16_kernel",
-    "flash_bwd_dq": "flash_bwd_dq_bf16_kernel",
+# The kernel function each wrapper launches for each input type: a fault of
+# one kernel is planted there, in the type of the case it runs on.
+_KERNEL = {
+    ("bf16", "flash_fwd"): "flash_fwd_bf16_kernel",
+    ("bf16", "flash_bwd_dkv"): "flash_bwd_dkv_bf16_kernel",
+    ("bf16", "flash_bwd_dq"): "flash_bwd_dq_bf16_kernel",
+    ("f32", "flash_fwd"): "flash_fwd_kernel",
+    ("f32", "flash_bwd_dkv"): "flash_bwd_dkv_kernel",
+    ("f32", "flash_bwd_dq"): "flash_bwd_dq_kernel",
 }
 
 
@@ -38,6 +41,7 @@ def test_fault_text_occurs_once_in_its_source(name):
     text = (_build.CSRC / file).read_text()
     assert text.count(old) == 1, f"{name}: {old!r} is in {file} {text.count(old)} times"
     assert old != new and case in CASES and broken and set(broken) <= set(OUTPUTS)
-    if len(broken) == 1:  # a fault of one kernel is planted in that kernel
-        start, end = _body(text, _BF16_KERNEL[broken[0]])
-        assert start < text.index(old) < end, f"{name}: not inside {_BF16_KERNEL[broken[0]]}"
+    if len(broken) == 1:  # a fault of one kernel is planted in that kernel, of the case's type
+        kernel = _KERNEL[CASES[case][0], broken[0]]
+        start, end = _body(text, kernel)
+        assert start < text.index(old) < end, f"{name}: not inside {kernel}"

@@ -4,12 +4,14 @@ on the CPU (the sources are read and copied, never built here)."""
 import pytest
 
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.tune_kernels import VARIANTS
+from ray_tpu_torch.ops.tune_kernels import F32_VARIANTS, VARIANTS
+
+_ALL = {**VARIANTS, **F32_VARIANTS}  # "as built" is in both, unchanged
 
 
-@pytest.mark.parametrize("name", sorted(VARIANTS))
+@pytest.mark.parametrize("name", sorted(_ALL))
 def test_variant_edits_each_find_their_text_once(name):
-    for file, old, new in VARIANTS[name][1]:
+    for file, old, new in _ALL[name][1]:
         assert (_build.CSRC / file).read_text().count(old) == 1, f"{name}: {old!r} in {file}"
         assert old != new
 
