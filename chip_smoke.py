@@ -214,15 +214,16 @@ line:
    forwards an evaluation step), ms an update; and the forward kernel at DT's
    shape (f32 B 64, T 60, H 2, D 32, causal, with LSE) against its plain
    version, SDPA in f32 and its bound at the f32-accurate rate of its route
-   (3xTF32: a third of the TF32 tensor-core peak; the dK/dV kernel's scalar
-   FMA: the f32 peak), and the dK/dV and dQ kernels there likewise (beside
+   (3xTF32, every f32 kernel's: a third of the TF32 tensor-core peak), and
+   the dK/dV and dQ kernels there likewise (beside
    the plain backward and SDPA's backward in f32, each computing dq, dk and
    dv), each on the device (a CUDA graph of 50 calls replayed: a call at
    this shape takes its wrapper's host time, longer than its kernel) and a
-   call at a time; then the f32 forward and dQ at the main path's shape (B
+   call at a time; then the three f32 kernels at the main path's shape (B
    12, T 1024, H 8, D 128) the same way. An "rllib: {...}" line; the
    kernels line gains rows "flash_fwd_dt", "flash_bwd_dkv_dt",
-   "flash_bwd_dq_dt", "flash_fwd_f32" and "flash_bwd_dq_f32"; the "_dt" rows
+   "flash_bwd_dq_dt", "flash_fwd_f32", "flash_bwd_dkv_f32" and
+   "flash_bwd_dq_f32"; the "_dt" rows
    carry DT's launches as "launches" and "rllib_launches" (the f32 kernels'),
    the "_f32" rows none (no path runs the f32 kernels at the main path's
    shape), and the other rows' "rllib_launches" are 0. In (a)'s cluster,
@@ -334,7 +335,6 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-PEAK_F32_FLOPS = 67e12  # H100 SXM f32 peak without tensor cores (FMA units), at 700 W
 PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak, at 700 W
 MAIN = dict(B=12, T=1024, H=8, D=128)  # attention shapes of the main path
 STEPS = 10  # timed train steps, after one warm-up step
@@ -344,12 +344,13 @@ KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 # earlier time can be told apart: the bf16 functions, and the f32 ones.
 DESIGNS = {"flash_fwd": "mma.sync-cp.async", "flash_bwd_dkv": "mma.sync-cp.async",
            "flash_bwd_dq": "mma.sync-cp.async"}
-F32_DESIGNS = {"flash_fwd": "3xtf32-mma.sync-cp.async", "flash_bwd_dkv": "scalar-fma-smem",
+F32_DESIGNS = {"flash_fwd": "3xtf32-mma.sync-cp.async", "flash_bwd_dkv": "3xtf32-mma.sync-cp.async",
                "flash_bwd_dq": "3xtf32-mma.sync-cp.async"}
 # The least time of an f32 function's work on the route its kernel takes:
-# three TF32 tensor-core products for each f32 one (3xTF32), or scalar FMA.
-F32_PEAKS = {"flash_fwd": PEAK_TF32_FLOPS / 3, "flash_bwd_dkv": PEAK_F32_FLOPS, "flash_bwd_dq": PEAK_TF32_FLOPS / 3}
-F32_MAIN_KERNELS = ("flash_fwd", "flash_bwd_dq")  # timed at the main path's shape in f32 too
+# three TF32 tensor-core products for each f32 one (3xTF32).
+F32_PEAKS = {"flash_fwd": PEAK_TF32_FLOPS / 3, "flash_bwd_dkv": PEAK_TF32_FLOPS / 3,
+             "flash_bwd_dq": PEAK_TF32_FLOPS / 3}
+F32_MAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")  # timed at the main path's shape in f32 too
 # Kinds of device work in a train step, by words in the kernel's name (the
 # first group that matches; "other" for none).
 PROFILE_GROUPS = (
@@ -662,7 +663,8 @@ def kernels_phase(torch):
             errs.update({"flash_fwd_dt": (m["out"], m["lse"]), "flash_bwd_dkv_dt": (m["dk"], m["dv"]),
                          "flash_bwd_dq_dt": (m["dq"],)})
         if (name, dt) == ("main", "f32"):
-            errs.update({"flash_fwd_f32": (m["out"], m["lse"]), "flash_bwd_dq_f32": (m["dq"],)})
+            errs.update({"flash_fwd_f32": (m["out"], m["lse"]), "flash_bwd_dkv_f32": (m["dk"], m["dv"]),
+                         "flash_bwd_dq_f32": (m["dq"],)})
         del q, k, v, dout, out_ref, lse_ref, dq_ref, dk_ref, dv_ref, out, out_primal, lse, dq, dk, dv, again
     if failures:
         raise AssertionError("kernel disagrees with its plain version: " + "; ".join(failures))
@@ -4864,8 +4866,8 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
     Atari module's shape in this process, against the same update on the
     CPU; (c) the Decision Transformer, its attention on the flash kernels.
     Returns (the flash kernels' launches in the DT run, the kernels line's
-    rows for the three f32 kernels at DT's shape and the f32 forward and dQ
-    at the main path's: none on the CPU)."""
+    rows for the three f32 kernels at DT's shape and at the main path's:
+    none on the CPU)."""
     _phase("rllib")
     import ray_tpu_torch as rt
     from ray_tpu_torch.ops import attention as A
@@ -5216,8 +5218,8 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
     rows = []
     if cuda:
         # The three kernels at DT's shape, as training launches them (f32, the
-        # forward with LSE); then the redesigned f32 forward and dQ at the main
-        # path's shape, where the operations bound and the bytes bound part.
+        # forward with LSE); then the three at the main path's shape, where the
+        # operations bound and the bytes bound part.
         # No path runs them at that shape: those rows book no launches.
         rows = f32_kernel_rows(torch, A, card, counts, "dt", DT_SHAPE, KERNELS, calls=50, replays=20, iters=100)
         res["dt"].update(kernel_ms={r["kernel"]: r["ms"] for r in rows},

@@ -88,136 +88,33 @@
 //   32-key stages at D 128 take 128 KB (one block per SM) and spill 80 B,
 //   and read slower (ops/tune_kernels.py --f32; PERF.md).
 //
-// f32 dK/dV (flash_bwd_dkv_kernel): still the first version, with scalar FMA
-// products on tiles, scores and accumulators all in shared memory
-// (flash_common.cuh), in blocks of 2 warps.
+// f32 dK/dV (flash_bwd_dkv_kernel): the bf16 dK/dV's design on f32 tiles,
+// with its four products in the 3xTF32 form of the f32 dQ. Warp w holds the
+// dK and dV of keys [16w, 16w+16) as f32 C fragments in registers; K and V
+// are loaded once into XOR-swizzled f32 tiles; query tiles, with their dO
+// rows, lse and Delta, stream through the two-stage cp.async ring, one
+// barrier per tile. S^T = K Q^T and dP^T = V dO^T take each k-chunk's sum
+// apart, as dQ's S and dP (dS = P (dP - Delta) cancels); lse and Delta
+// belong to the columns (queries) there, so a lane reads them for its
+// columns 8n + 2t and 8n + 2t + 1 from the staged rows. dV += P^T dO and
+// dK += dS^T Q take P^T and dS^T as A operands as they stand (mm_pb_tf32's
+// permuted contraction) and read dO and Q at rows 2t, 2t+1: one swizzled Q
+// tile is the B operand of S^T (by ldmatrix) and of dK (scalar loads). Each
+// key sums every query that sees it (1024 at the main shape): each 8-query
+// chunk is summed in a fresh fragment and added in f32.
+// - The diagonal split per warp (tile_mode against its 16 keys). Query rows
+//   past Tq are zero-filled, and their lse (0) is no row's: such a tile is
+//   always masked, never left to a zero dO, since exp(S - lse) may be inf.
+// - Query stages of 64 rows at D 32, 32 at D 64, 16 at D 128, where the two
+//   accumulators alone take 128 registers a thread (kDkvF32BQ). Registers,
+//   shared memory and blocks per SM: rtt_flash_bwd_info; PERF.md.
 #include "flash_tf32.cuh"
 
 namespace rtt {
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  constexpr int BQ = kF32Tile, BK = kF32Tile;
-  // K, V, Q, dO; P^T, dS^T, S^T, dP^T; dK, dV; lse, Delta.
-  return sizeof(float) * (2 * BK * D + 2 * BQ * D + 4 * BK * BQ + 2 * BK * D + 2 * BQ);
-}
-
-// One block per (key tile, batch*head); warp w owns key rows [16w, 16w+16).
-// Scores are taken transposed, S^T = K Q^T, so that each warp's strip of P^T
-// and dS^T is the A operand of its dV and dK products.
-template <int D>
-__global__ void __launch_bounds__(kF32Tile / kStrip * 32)
-    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                         const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int H, int Tq, int Tk, float scale, int causal,
-                         int window) {
-  constexpr int BQ = kF32Tile, BK = kF32Tile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);  // [BK, D]
-  float* Vs = Ks + BK * D;                     // [BK, D]
-  float* Qs = Vs + BK * D;                     // [BQ, D]
-  float* dOs = Qs + BQ * D;                    // [BQ, D]
-  float* PT = dOs + BQ * D;                    // [BK, BQ]  P^T
-  float* dST = PT + BK * BQ;                   // [BK, BQ]  dS^T
-  float* ST = dST + BK * BQ;                   // [BK, BQ]
-  float* dPT = ST + BK * BQ;                   // [BK, BQ]
-  float* dKacc = dPT + BK * BQ;                // [BK, D]
-  float* dVacc = dKacc + BK * D;               // [BK, D]
-  float* lse_s = dVacc + BK * D;               // [BQ]
-  float* delta_s = lse_s + BQ;                 // [BQ]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BK;
-  const int stride = H * D;
-  const int offset = Tk - Tq;
-  const size_t q_head = ((size_t)b * Tq * H + h) * D, k_head = ((size_t)b * Tk * H + h) * D;
-
-  load_tile<D>(Ks, k + k_head, k0, BK, Tk, stride);
-  load_tile<D>(Vs, v + k_head, k0, BK, Tk, stride);
-  for (int i = threadIdx.x; i < 2 * BK * D; i += blockDim.x) dKacc[i] = 0.f;  // dKacc and dVacc
-  __syncthreads();  // a warp may store its strip without entering the loop
-
-  // Query tiles that can see this key tile: from the first row whose causal
-  // horizon reaches k0 to the last row whose window still holds the tile's
-  // last key.
-  const int nqt = (Tq + BQ - 1) / BQ;
-  int qt_begin = 0, qt_end = nqt;
-  if (causal) {
-    const int first_row = k0 - offset;
-    qt_begin = first_row <= 0 ? 0 : min(first_row / BQ, nqt);
-    if (window > 0) {
-      const int last_row = min(k0 + BK, Tk) - 1 + window - 1 - offset;
-      qt_end = last_row < 0 ? 0 : min(nqt, last_row / BQ + 1);
-      qt_end = max(qt_end, qt_begin);
-    }
-  }
-
-  const int kw = warp * kStrip;  // this warp's first key row in the tile
-  float* STw = ST + kw * BQ;
-  float* dPTw = dPT + kw * BQ;
-  float* PTw = PT + kw * BQ;
-  float* dSTw = dST + kw * BQ;
-
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<D>(Qs, q + q_head, q0, BQ, Tq, stride);
-    load_tile<D>(dOs, dout + q_head, q0, BQ, Tq, stride);
-    load_rows(lse_s, lse + (size_t)bh * Tq, q0, BQ, Tq);
-    load_rows(delta_s, delta + (size_t)bh * Tq, q0, BQ, Tq);
-    __syncthreads();
-
-    warp_mm<true, BQ, D>(Ks + kw * D, D, Qs, D, STw, BQ, false);    // S^T = K Q^T
-    warp_mm<true, BQ, D>(Vs + kw * D, D, dOs, D, dPTw, BQ, false);  // dP^T = V dO^T
-    for (int i = lane; i < kStrip * BQ; i += 32) {
-      const int kr = i / BQ, c = i % BQ;
-      const bool vis = q0 + c < Tq && visible(q0 + c + offset, k0 + kw + kr, Tk, causal, window);
-      const float p = vis ? expf(STw[i] * scale - lse_s[c]) : 0.f;
-      PTw[i] = p;
-      dSTw[i] = p * (dPTw[i] - delta_s[c]) * scale;
-    }
-    __syncwarp();
-    warp_mm<false, D, BQ>(PTw, BQ, dOs, D, dVacc + kw * D, D, true);  // dV += P^T dO
-    warp_mm<false, D, BQ>(dSTw, BQ, Qs, D, dKacc + kw * D, D, true);  // dK += dS^T Q
-  }
-
-  store_strip<D>(dk + k_head, dKacc + kw * D, k0 + kw, Tk, stride);
-  store_strip<D>(dv + k_head, dVacc + kw * D, k0 + kw, Tk, stride);
-}
-
-// The f32 dK/dV kernel.
-template <int D>
-cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                           const float* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
-                           int causal, int window, cudaStream_t stream) {
-  constexpr int TILE = kF32Tile;
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((Tk + TILE - 1) / TILE, B * H), TILE / kStrip * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, scale,
-      causal, window);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_dkv_f32(int D, const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                             const float* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
-                             int causal, int window, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_dkv_f32<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
-    case 64: return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
-    case 128: return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 namespace sm90 {
 
 constexpr int kDkvBK = 64;  // keys per block: 4 warps of 16
-constexpr int kDkvBQ = 64;  // query rows per ring stage
+constexpr int kDkvBQ = 64;  // query rows per ring stage (bf16)
 constexpr int kDkvThreads = kDkvBK / 16 * 32;
 
 template <int D>
@@ -355,6 +252,152 @@ cudaError_t dispatch_dkv_bf16(int D, const void* q, const void* k, const void* v
     case 32: return launch_dkv_bf16<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
     case 64: return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
     case 128: return launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Query rows per ring stage of the f32 dK/dV: at D 128, 16 keep K, V and the
+// ring at 96 KB (two blocks per SM) beside the 128 registers of dK and dV.
+template <int D>
+constexpr int kDkvF32BQ = D == 32 ? 64 : D == 64 ? 32 : 16;
+
+template <int D>
+constexpr size_t dkv_f32_smem_bytes() {
+  // K, V; a two-stage ring of Q, dO, lse and Delta.
+  return sizeof(float) * (2 * kDkvBK * D + 2 * 2 * kDkvF32BQ<D> * D + 2 * 2 * kDkvF32BQ<D>);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads)
+    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, int H, int Tq, int Tk, float scale, int causal,
+                         int window) {
+  constexpr int BQ = kDkvF32BQ<D>, BK = kDkvBK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);  // [BK, D]
+  float* Vs = Ks + BK * D;                     // [BK, D]
+  float* Qs = Vs + BK * D;                     // [2][BQ, D]
+  float* dOs = Qs + 2 * BQ * D;                // [2][BQ, D]
+  float* Ls = dOs + 2 * BQ * D;                // [2][BQ] lse
+  float* Ds = Ls + 2 * BQ;                     // [2][BQ] Delta
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BK;  // key tile 0 (the longest causal work) first
+  const int stride = H * D;
+  const int offset = Tk - Tq;
+  const float* qh = q + ((size_t)b * Tq * H + h) * D;
+  const float* doh = dout + ((size_t)b * Tq * H + h) * D;
+  const float* lseh = lse + (size_t)bh * Tq;
+  const float* deltah = delta + (size_t)bh * Tq;
+  const size_t k_head = ((size_t)b * Tk * H + h) * D;
+
+  // Query tiles that can see this key tile, as in the bf16 dK/dV.
+  const int nqt = (Tq + BQ - 1) / BQ;
+  int qt_begin = 0, qt_end = nqt;
+  if (causal) {
+    const int first_row = k0 - offset;
+    qt_begin = first_row <= 0 ? 0 : min(first_row / BQ, nqt);
+    if (window > 0) {
+      const int last_row = min(k0 + BK, Tk) - 1 + window - 1 - offset;
+      qt_end = last_row < 0 ? 0 : min(nqt, last_row / BQ + 1);
+      qt_end = max(qt_end, qt_begin);
+    }
+  }
+
+  auto load_stage = [&](int qt, int stage) {
+    load_tile_f32_async<BQ, D, kDkvThreads>(Qs + stage * BQ * D, qh, qt * BQ, Tq, stride);
+    load_tile_f32_async<BQ, D, kDkvThreads>(dOs + stage * BQ * D, doh, qt * BQ, Tq, stride);
+    load_rows_async<BQ>(Ls + stage * BQ, lseh, qt * BQ, Tq);
+    load_rows_async<BQ>(Ds + stage * BQ, deltah, qt * BQ, Tq);
+  };
+  load_tile_f32_async<BK, D, kDkvThreads>(Ks, k + k_head, k0, Tk, stride);
+  load_tile_f32_async<BK, D, kDkvThreads>(Vs, v + k_head, k0, Tk, stride);
+  if (qt_begin < qt_end) load_stage(qt_begin, 0);
+  cp_async_commit();
+
+  const int key0 = k0 + warp * 16;               // this warp's first key ...
+  const int key_last = min(key0 + 15, Tk - 1);   // ... and its last real one
+  const float sl2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+#pragma unroll 1
+  for (int qt = qt_begin; qt < qt_end; ++qt) {
+    const int stage = (qt - qt_begin) & 1;
+    cp_async_wait<0>();  // this thread's copies of query tile qt (and K, V) have landed ...
+    __syncthreads();     // ... every thread's have, and every warp is done with tile qt - 1
+    if (qt + 1 < qt_end) load_stage(qt + 1, stage ^ 1);  // so qt + 1 fills qt - 1's stage while qt is used
+    cp_async_commit();
+
+    const int q0 = qt * BQ;
+    const int qp0 = q0 + offset;  // the tile's first query against the keys
+    const bool ragged = q0 + BQ > Tq;  // padding rows past Tq are masked
+    int tile = key0 >= Tk ? kSkip : tile_mode(qp0, qp0 + BQ - 1, key0, key_last, ragged, causal, window);
+    if (tile == kSkip) continue;  // no query of this tile sees the warp's keys
+
+    const float* Qt = Qs + stage * BQ * D;
+    const float* dOt = dOs + stage * BQ * D;
+    const float* Lt = Ls + stage * BQ;
+    const float* Dt = Ds + stage * BQ;
+    float s[BQ / 8][4], dp[BQ / 8][4];
+    mm_abt_tf32<D, BQ, true>(s, Ks, warp * 16, Qt, 0);    // S^T = K Q^T
+    mm_abt_tf32<D, BQ, true>(dp, Vs, warp * 16, dOt, 0);  // dP^T = V dO^T
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const int col = n * 8 + 2 * t;  // query (in the tile) of elements e = 0 and 2; e = 1, 3: col + 1
+      const float2 lse2 = *reinterpret_cast<const float2*>(Lt + col);
+      const float2 del2 = *reinterpret_cast<const float2*>(Dt + col);
+      const float l2[2] = {lse2.x * 1.4426950408889634f, lse2.y * 1.4426950408889634f};
+      const float d2[2] = {del2.x, del2.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[n][e], sl2, -l2[e & 1]));
+        if (tile == kMasked) {  // only tiles across the diagonal, the window's edge, Tk or Tq
+          const int qrow = q0 + col + (e & 1);
+          if (!(qrow < Tq && visible(qrow + offset, key0 + g + (e >> 1) * 8, Tk, causal, window))) p = 0.f;
+        }
+        s[n][e] = p;                                    // P^T
+        dp[n][e] = p * (dp[n][e] - d2[e & 1]) * scale;  // dS^T
+      }
+    }
+    mm_pb_tf32<D, BQ>(dv_acc, s, dOt);  // dV += P^T dO
+    mm_pb_tf32<D, BQ>(dk_acc, dp, Qt);  // dK += dS^T Q
+  }
+  cp_async_wait<0>();  // no copy outlives the block (K's and V's, when no query tile sees it)
+
+  // dS^T carries the scale already: dK is stored as it is.
+  store_acc_f32<D>(dk + k_head, dk_acc, 1.f, 1.f, key0, Tk, stride);
+  store_acc_f32<D>(dv + k_head, dv_acc, 1.f, 1.f, key0, Tk, stride);
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
+                           int causal, int window, cudaStream_t stream) {
+  constexpr size_t smem = dkv_f32_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, (Tk + kDkvBK - 1) / kDkvBK), kDkvThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dkv_f32(int D, const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                             const float* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
+                             int causal, int window, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_dkv_f32<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 64: return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+    case 128: return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -626,8 +669,9 @@ extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                                  int D, float scale, int causal, int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *l = static_cast<const float*>(lse), *d = static_cast<const float*>(delta);
-  return is_bf16 ? rtt::sm90::dispatch_dkv_bf16(D, q, k, v, dout, l, d, dk, dv, B, H, Tq, Tk, scale, causal, window, s)
-                 : rtt::dispatch_dkv_f32(D, q, k, v, dout, l, d, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
+  using namespace rtt::sm90;
+  return is_bf16 ? dispatch_dkv_bf16(D, q, k, v, dout, l, d, dk, dv, B, H, Tq, Tk, scale, causal, window, s)
+                 : dispatch_dkv_f32(D, q, k, v, dout, l, d, dk, dv, B, H, Tq, Tk, scale, causal, window, s);
 }
 
 // As rtt_flash_bwd_dkv, writing dq ([B, Tq, H, D]).
@@ -646,11 +690,10 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v, con
 extern "C" int rtt_flash_bwd_info(int kernel, int is_bf16, int D, int* info) {
   using namespace rtt::sm90;
   using rtt::kernel_info;
-  constexpr int kDkvF32Threads = rtt::kF32Tile / rtt::kStrip * 32;
   switch (kernel * 10000 + is_bf16 * 1000 + D) {
-    case 32: return kernel_info(rtt::flash_bwd_dkv_kernel<32>, rtt::dkv_smem_bytes<32>(), kDkvF32Threads, info);
-    case 64: return kernel_info(rtt::flash_bwd_dkv_kernel<64>, rtt::dkv_smem_bytes<64>(), kDkvF32Threads, info);
-    case 128: return kernel_info(rtt::flash_bwd_dkv_kernel<128>, rtt::dkv_smem_bytes<128>(), kDkvF32Threads, info);
+    case 32: return kernel_info(flash_bwd_dkv_kernel<32>, dkv_f32_smem_bytes<32>(), kDkvThreads, info);
+    case 64: return kernel_info(flash_bwd_dkv_kernel<64>, dkv_f32_smem_bytes<64>(), kDkvThreads, info);
+    case 128: return kernel_info(flash_bwd_dkv_kernel<128>, dkv_f32_smem_bytes<128>(), kDkvThreads, info);
     case 1032: return kernel_info(flash_bwd_dkv_bf16_kernel<32>, dkv_bf16_smem_bytes<32>(), kDkvThreads, info);
     case 1064: return kernel_info(flash_bwd_dkv_bf16_kernel<64>, dkv_bf16_smem_bytes<64>(), kDkvThreads, info);
     case 1128: return kernel_info(flash_bwd_dkv_bf16_kernel<128>, dkv_bf16_smem_bytes<128>(), kDkvThreads, info);

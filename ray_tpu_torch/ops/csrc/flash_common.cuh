@@ -4,15 +4,8 @@
 // head's rows are D contiguous elements H*D apart. A block reads them in place;
 // nothing is transposed or copied into a [B*H, T, D] layout first.
 //
-// The f32 dK/dV kernel (the first version; the f32 forward and dQ are
-// redesigned on 3xTF32 tensor-core products, flash_tf32.cuh) uses the tile
-// helpers below: a tile of 16*W rows is owned by a block of W warps, and warp
-// w owns rows [16w, 16w+16) of it for every product and every row-wise step,
-// so the only block-wide barriers are around loading a shared tile. warp_mm
-// multiplies a warp's 16-row strip by a tile in shared memory into a float
-// strip in shared memory with scalar FMA, in full f32. The other kernels
-// build on flash_sm90.cuh and flash_tf32.cuh instead; the masks and loop
-// bounds at the end of this file serve all of them.
+// The kernels build on flash_sm90.cuh (bf16) and flash_tf32.cuh (f32); the
+// masks and loop bounds here serve all of them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,70 +13,6 @@
 #include <stdint.h>
 
 namespace rtt {
-
-constexpr int kStrip = 16;  // rows per warp
-// Rows of the f32 dK/dV kernel's tiles: 32 keep it inside one SM's 227 KB of
-// shared memory at D = 128.
-constexpr int kF32Tile = 32;
-
-// Copy rows [row0, row0 + rows) of one head into a dense [rows, D] tile,
-// 16 bytes per thread per step; rows at or past `len` are zero-filled.
-// `src` points at row 0 of the head; `stride` is H * D elements.
-template <int D>
-__device__ void load_tile(float* dst, const float* src, int row0, int rows, int len, int stride) {
-  constexpr int kChunks = D * (int)sizeof(float) / 16;
-  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < len) val = reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * stride)[c];
-    reinterpret_cast<uint4*>(dst + r * D)[c] = val;
-  }
-}
-
-// Rows [row0, row0 + rows) of a per-row f32 vector ([B*H, T], one head at
-// `src`), zero past `len`.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int rows, int len) {
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) dst[i] = row0 + i < len ? src[row0 + i] : 0.f;
-}
-
-// Write a warp's [16, D] f32 strip to rows [row0, row0 + 16) of one head,
-// skipping rows at or past `len`.
-template <int D>
-__device__ void store_strip(float* dst, const float* strip, int row0, int len, int stride) {
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < kStrip * D; i += 32) {
-    const int r = i / D, d = i % D;
-    if (row0 + r < len) dst[(size_t)(row0 + r) * stride + d] = strip[i];
-  }
-}
-
-// C[16, N] = (accumulate ? C : 0) + A[16, K] * B[K, N], for one warp.
-// A is row-major with leading dimension lda. B is row-major [K, N] with
-// leading dimension ldb, or, when B_T, the transpose of a row-major [N, K]
-// tile (element (k, n) at B[n * ldb + k]). C is row-major with ldc. All of
-// A, B, C live in shared memory; C is complete for every lane on return.
-// N is a multiple of 32, so a warp's 32 outputs of one step share the row m;
-// each lane starts the k-loop at its own offset so the 32 lanes read 32
-// different banks of A and B.
-template <bool B_T, int N, int K>
-__device__ void warp_mm(const float* A, int lda, const float* B, int ldb, float* C, int ldc, bool accumulate) {
-  static_assert(N % 32 == 0 && K % 32 == 0, "tile widths are multiples of 32");
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < kStrip * N; i += 32) {
-    const int m = i / N, n = i % N;
-    float s = accumulate ? C[m * ldc + n] : 0.f;
-    const float* a = A + m * lda;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      int kk = k + lane;
-      if (kk >= K) kk -= K;
-      const float b = B_T ? B[n * ldb + kk] : B[kk * ldb + n];
-      s = fmaf(a[kk], b, s);
-    }
-    C[m * ldc + n] = s;
-  }
-  __syncwarp();
-}
 
 // Is key `kpos` visible from query row `qpos` (both absolute positions, with
 // the query already shifted by Tk - Tq so the causal mask is bottom-right

@@ -1,5 +1,5 @@
 // Register-resident building blocks of the f32 flash-attention kernels (the
-// forward in flash_fwd.cu, dQ in flash_bwd.cu): the bf16 kernels' structure
+// forward in flash_fwd.cu, dK/dV and dQ in flash_bwd.cu): the bf16 kernels' structure
 // (flash_sm90.cuh) on f32 tiles, with every product on the tensor cores in
 // the 3xTF32 form.
 //
@@ -29,7 +29,7 @@
 // Operands come from XOR-swizzled f32 tiles (swz_f32): Q K^T's A and B
 // fragments by ldmatrix, which moves 32-bit elements unchanged when it is not
 // transposed (lane (g, t) of an 8 x 8 b16 matrix gets float t of row g);
-// P V's and dS K's B fragments by scalar loads, since ldmatrix.trans moves
+// P V's, dS K's, P^T dO's and dS^T Q's B fragments by scalar loads, since ldmatrix.trans moves
 // 16-bit elements. The swizzle keeps both free of bank conflicts.
 #pragma once
 
@@ -75,9 +75,9 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
 // c += a * b from the split operands, in the tensor cores' accumulator: the
 // two correction products, then the main one. That accumulator rounds its
 // sums toward zero. Over the few k-chunks of one score (D / 8 <= 16) the
-// forward's output stays well inside the f32 bar; dQ's does not (dS = P
-// (dP - Delta) cancels), nor does a sum over the hundreds of keys of a long
-// row: mma3_tf32_fresh serves those sums.
+// forward's output stays well inside the f32 bar; dQ's and dK's do not (dS
+// = P (dP - Delta) cancels), nor does a sum over the hundreds of keys of a
+// long row or queries of a long column: mma3_tf32_fresh serves those sums.
 __device__ __forceinline__ void mma3_tf32(float (&c)[4], const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
                                           uint32_t b0_hi, uint32_t b1_hi, uint32_t b0_lo, uint32_t b1_lo) {
   mma_tf32(c, a_lo, b0_hi, b1_hi);
@@ -98,7 +98,8 @@ __device__ __forceinline__ void mma3_tf32_fresh(float (&c)[4], const uint32_t (&
 // acc[n][.] = A[16, D] * B[N, D]^T for one warp: A is rows [a_row, a_row + 16)
 // of a swizzled [*, D] f32 tile, B rows [b_row, b_row + N) of another (b_row a
 // multiple of 8). The k dimension is D, in chunks of 8. (S = Q K^T in the
-// forward; S = Q K^T and dP = dO V^T in dQ.) FRESH: each k-chunk's sum in
+// forward; S = Q K^T and dP = dO V^T in dQ; S^T = K Q^T and dP^T = V dO^T
+// in dK/dV.) FRESH: each k-chunk's sum in
 // a fresh fragment (mma3_tf32_fresh), else all in the accumulator.
 template <int D, int N, bool FRESH>
 __device__ __forceinline__ void mm_abt_tf32(float (&acc)[N / 8][4], const float* A, int a_row, const float* B,
@@ -139,11 +140,12 @@ __device__ __forceinline__ void mm_abt_tf32(float (&acc)[N / 8][4], const float*
 
 // acc[16, D] += P[16, K] * B[K, D] for one warp: P is given as the C
 // fragments of K/8 n-tiles, B is rows [0, K) of a swizzled [*, D] f32 tile.
-// (O += P V in the forward; dQ += dS K in dQ.) k-chunk j holds keys
+// (O += P V in the forward; dQ += dS K in dQ; dV += P^T dO and dK += dS^T Q
+// in dK/dV, the contraction over queries.) k-chunk j holds keys
 // 8j..8j+7 in the permuted order of the header: a lane's A fragment is its
 // C fragment p[j] reordered, its B fragment B[8j + 2t][8nn + g] and
 // B[8j + 2t + 1][8nn + g]. Each k-chunk's products are summed apart
-// (mma3_tf32_fresh): a row of keys is long.
+// (mma3_tf32_fresh): a row of keys (a column of queries) is long.
 template <int D, int K>
 __device__ __forceinline__ void mm_pb_tf32(float (&acc)[D / 8][4], const float (&p)[K / 8][4], const float* B) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;

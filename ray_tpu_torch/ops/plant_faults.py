@@ -62,19 +62,26 @@ FAULTS = {
     "window_off_by_one": (
         "flash_common.cuh", "qpos - kpos < window", "qpos - kpos <= window",
         "window256", ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
-    # The f32 forward and dQ drop the 3xTF32 correction products: one TF32
-    # product (10 mantissa bits) in place of each f32 one, in every product
-    # of both (S = Q K^T, O += P V; dP = dO V^T, dQ += dS K).
+    # The f32 kernels drop the 3xTF32 correction products: one TF32 product
+    # (10 mantissa bits) in place of each f32 one, in every product of all
+    # three (S = Q K^T, O += P V; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
+    # dK += dS^T Q; S, dP = dO V^T, dQ += dS K).
     "f32_one_tf32_product": (
         "flash_tf32.cuh",
         "  mma_tf32(c, a_lo, b0_hi, b1_hi);\n  mma_tf32(c, a_hi, b0_lo, b1_lo);\n", "",
-        "main_f32", ("flash_fwd", "flash_bwd_dq")),
+        "main_f32", ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
     # The f32 dQ's query tiles from row 512 on skip their second key tile.
     "dq_f32_skip_key_tile": (
         "flash_bwd.cu",
         "k_last, k_last >= Tk, causal, window);\n",
         "k_last, k_last >= Tk, causal, window);\n    if (kt == kt_begin + 1 && q0 >= 512) tile = kSkip;\n",
         "main_f32", ("flash_bwd_dq",)),
+    # Every warp of each f32 key tile skips the second query tile that sees it.
+    "dkv_f32_skip_query_tile": (
+        "flash_bwd.cu",
+        "key_last, ragged, causal, window);\n",
+        "key_last, ragged, causal, window);\n    if (qt == qt_begin + 1) tile = kSkip;\n",
+        "main_f32", ("flash_bwd_dkv",)),
 }
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 CASES = {  # name: (type, B, T, H, D, causal, window)

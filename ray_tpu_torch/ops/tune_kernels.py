@@ -14,8 +14,8 @@ call on one card:
 - by default the bf16 variants (``VARIANTS``): forward, dK/dV and dQ at the
   main path's shapes (bf16, B 12, T 1024, H 8, D 128, causal), with CUDA
   events around 30 calls;
-- with ``--f32`` the f32 variants (``F32_VARIANTS``): the forward and dQ at
-  the main path's shapes in f32 (events around 30 calls) and at the Decision
+- with ``--f32`` the f32 variants (``F32_VARIANTS``): forward, dK/dV and dQ
+  at the main path's shapes in f32 (events around 30 calls) and at the Decision
   Transformer's (f32, B 64, T 60, H 2, D 32, causal), where a kernel runs
   for less time than its wrapper takes on the host: there each time is the
   device's, from a CUDA graph of 50 calls replayed.
@@ -82,6 +82,16 @@ F32_VARIANTS = {
         "f32 forward with K/V stages of 16 keys at D 128 in place of 32",
         [("flash_fwd.cu", "constexpr int kFwdF32BK = D == 128 ? 32 : 64;",
           "constexpr int kFwdF32BK = D == 128 ? 16 : 64;")]),
+    "f32 dkv S^T and dP^T in the mma": (
+        "dK/dV's S^T and dP^T summed in the tensor cores' accumulator, as the forward's S, in place of fresh "
+        "fragments",
+        [("flash_bwd.cu", "mm_abt_tf32<D, BQ, true>(s, Ks", "mm_abt_tf32<D, BQ, false>(s, Ks"),
+         ("flash_bwd.cu", "mm_abt_tf32<D, BQ, true>(dp, Vs", "mm_abt_tf32<D, BQ, false>(dp, Vs")]),
+    "f32 dkv 32-query stages": (
+        "f32 dK/dV with query stages of 32 rows at D 128 (one block per SM: K, V and the ring take 128 KB) in "
+        "place of 16",
+        [("flash_bwd.cu", "constexpr int kDkvF32BQ = D == 32 ? 64 : D == 64 ? 32 : 16;",
+          "constexpr int kDkvF32BQ = D == 32 ? 64 : D == 64 ? 32 : 32;")]),
     "f32 dq 32-key stages": (
         "f32 dQ with K/V stages of 32 keys at D 128 (one block per SM) in place of 16",
         [("flash_bwd.cu", "constexpr int kDqF32BK = D == 128 ? 16 : 64;",
@@ -92,7 +102,6 @@ SHAPES = {  # mode: {shape: (B, T, H, D)}
     "f32": {"main": (12, 1024, 8, 128), "dt": (64, 60, 2, 32)},
 }
 KERNELS = {"flash_fwd": "forward", "flash_bwd_dkv": "dK/dV", "flash_bwd_dq": "dQ"}
-TIMED = {"bf16": tuple(KERNELS), "f32": ("flash_fwd", "flash_bwd_dq")}
 ROUNDS, ITERS, GRAPH_CALLS, GRAPH_REPLAYS = 2, 30, 50, 20
 
 
@@ -185,7 +194,7 @@ def main(argv=None) -> int:
             f"{kern} {x['regs']} registers, {x['smem_bytes']} B shared, {x['blocks_per_sm']} block(s) of "
             f"{x['threads'] // 32} warps/SM, {x['local_bytes']} B local" for kern, x in info[name].items())))
 
-    times = {name: {shape: {kern: [] for kern in TIMED[mode]} for shape in SHAPES[mode]} for name in builds}
+    times = {name: {shape: {kern: [] for kern in KERNELS} for shape in SHAPES[mode]} for name in builds}
     readings = {name: {shape: {} for shape in SHAPES[mode]} for name in builds}
     wrong = []
     for shape, dims in SHAPES[mode].items():
@@ -195,7 +204,7 @@ def main(argv=None) -> int:
             for name, kernels in builds.items():
                 over, line = [], []
                 with mock.patch.object(_build, "load_kernels", lambda: kernels):  # the wrappers launch from this build
-                    for kern in TIMED[mode]:
+                    for kern in KERNELS:
                         launch, outs = calls[kern]
                         ms = [A.mismatch(got, want[o]) for o, got in zip(outs, launch())]
                         worst = {key: max(m[key] for m in ms) for key in ("rel_l2", "elem")}

@@ -9,7 +9,10 @@ holders' objects, spill and restore under ``devobj_resident_limit_bytes``,
 and a holder's death (``DeviceObjectLostError`` naming it). After each step
 every process's ``DEVOBJ_STATS`` delta must equal the reference's (``frees``
 is left out: it follows the owner's garbage collection, not the step), and
-every value the port returns must equal the reference's bit for bit. Then
+every value the port returns must equal the reference's bit for bit. A
+holder counts its p2p send after the send returns, on an executor thread,
+so the consumer's read may return first: each snapshot waits (bounded)
+until the counters hold still. Then
 the port alone: the same ``data_ptr`` in the holder, CPU tensors stay
 resident, and a DTensor is refused naming ROADMAP A9f.
 
@@ -92,12 +95,27 @@ def scenario(pkg: str) -> tuple[list, list]:
     def snap():
         return [_driver_stats(pkg)] + r.get([p.stats.remote() for p in procs], timeout=60)
 
+    def settled_snap(timeout_s=20.0, quiet_s=0.25):
+        """A snapshot once no compared counter of any process has moved for
+        `quiet_s`: a holder's send is counted after the consumer may have
+        its value."""
+        deadline = time.monotonic() + timeout_s
+        now = snap()
+        while True:
+            time.sleep(quiet_s)
+            again = snap()
+            if [{k: s[k] for k in COMPARED} for s in again] == [{k: s[k] for k in COMPARED} for s in now]:
+                return again
+            if time.monotonic() > deadline:
+                pytest.fail(f"{pkg}: the device-object counters still move after {timeout_s} s: {now} -> {again}")
+            now = again
+
     deltas, values = [], []
-    last = snap()
+    last = settled_snap()
 
     def step():
         nonlocal last
-        now = snap()
+        now = settled_snap()
         deltas.append([{k: b[k] - a[k] for k in COMPARED} for a, b in zip(last, now)])
         last = now
 
@@ -167,7 +185,12 @@ def cluster():
 def test_scenario_stats_and_values_equal_the_reference(reference, cluster):
     deltas, values = scenario("ray_tpu_torch")
     want_deltas, want_values = reference
-    assert deltas == want_deltas
+    assert [len(s) for s in deltas] == [len(s) for s in want_deltas]
+    names = ("this process", "h1", "c1", "c2", "h2")  # each step's columns, in order
+    differ = [f"step {i + 1}, {names[j]}, {k}: {got[k]} against the reference's {want[k]}"
+              for i, (steps, want_steps) in enumerate(zip(deltas, want_deltas))
+              for j, (got, want) in enumerate(zip(steps, want_steps)) for k in COMPARED if got[k] != want[k]]
+    assert not differ, "; ".join(differ)
     assert len(values) == len(want_values)
     for got, want in zip(values, want_values):
         assert got.dtype == want.dtype and got.tobytes() == want.tobytes()

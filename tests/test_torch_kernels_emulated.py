@@ -5,12 +5,12 @@ versions.
 The kernels run for real only on a card (``tests/test_torch_kernels_gpu.py``,
 ``chip_smoke.py``). Here g++ compiles the same sources, ``ops/csrc``, with
 ``tests/cuda_emulation/`` in place of the CUDA headers and of
-``ptx_sm90.cuh``: each block's threads run as host threads, the barriers are
-barriers, and ldmatrix, mma.sync (m16n8k16 bf16, m16n8k8 tf32) and the
-shuffles exchange values through per-warp buffers by the PTX ISA's fragment
-layouts; cvt.rna.tf32.f32 rounds as the card does, an mma reads only a tf32
-operand's top 19 bits and rounds its sum toward zero; cp.async copies at
-once.
+``ptx_sm90.cuh``: each block's threads run as fibers on one host thread,
+the barriers are barriers, and ldmatrix, mma.sync (m16n8k16 bf16, m16n8k8
+tf32) and the shuffles exchange values through per-warp buffers by the PTX
+ISA's fragment layouts; cvt.rna.tf32.f32 rounds as the card does, an mma
+reads only a tf32 operand's top 19 bits and rounds its sum toward zero;
+cp.async copies at once.
 So this checks what the kernels compute (fragment layouts, swizzled
 addresses, the diagonal split and its masks, tile bounds, ragged tails, the
 online softmax, the no-LSE variant, rows with no visible key, the f32
@@ -87,10 +87,13 @@ _CASES = [
 CASES = pytest.mark.parametrize("B,Tq,Tk,H,D,causal,window", _CASES)
 # The f32 kernels also at the Decision Transformer's shape (the f32 path's
 # user: T 60 inside one tile, D 32, two heads), at batch 2; and on rows of
-# 1024 keys, where a sum kept in the tensor cores' accumulator (which rounds
-# toward zero) would drift past the f32 bar.
-F32_CASES = pytest.mark.parametrize(
-    "B,Tq,Tk,H,D,causal,window", _CASES + [(2, 60, 60, 2, 32, True, 0), (1, 64, 1024, 1, 128, False, 0)])
+# 1024 keys (and, for dK/dV, columns of 1024 queries), where a sum kept in the
+# tensor cores' accumulator (which rounds toward zero) drifts to the f32 bar
+# or past it.
+_F32_CASES = _CASES + [(2, 60, 60, 2, 32, True, 0), (1, 64, 1024, 1, 128, False, 0)]
+F32_CASES = pytest.mark.parametrize("B,Tq,Tk,H,D,causal,window", _F32_CASES)
+# dK/dV sums the other way, over queries: each key of a column of 1024 rows.
+F32_DKV_CASES = pytest.mark.parametrize("B,Tq,Tk,H,D,causal,window", _F32_CASES + [(1, 1024, 64, 1, 128, False, 0)])
 
 
 def _case(dtype, B, Tq, Tk, H, D, causal, window):
@@ -146,10 +149,9 @@ def test_emulated_bf16_dq_matches_plain(lib, B, Tq, Tk, H, D, causal, window):
     _dq(lib, torch.bfloat16, B, Tq, Tk, H, D, causal, window)
 
 
-@F32_CASES
+@F32_DKV_CASES
 def test_emulated_f32_kernels_match_plain(lib, B, Tq, Tk, H, D, causal, window):
-    """The f32 forward (3xTF32 on mma.sync) and dK/dV (scalar FMA through
-    shared memory)."""
+    """The f32 forward and dK/dV (3xTF32 on mma.sync)."""
     _forward_and_dkv(lib, torch.float32, B, Tq, Tk, H, D, causal, window)
 
 
