@@ -306,10 +306,50 @@ line:
    counted: the kernels line's rows carry the count as
    "rllib_families_launches" (0: these paths compute no attention).
 
+16. tune: ray_tpu_torch.tune on the card, in a cluster of its own,
+   init(num_cpus=8, num_gpus=1). (a) Tuner(TorchTrainer) over the flagship
+   loop at the trainer phase's config (bf16, batch 12 x 1024) and the moe
+   trainer's depth (2 warm-up steps, one round of 4-step chunks), a grid
+   of param_seed 0 and 1, each trial's worker holding half the card
+   (ScalingConfig(num_workers=1, use_gpu=True, resources_per_worker={"GPU":
+   0.5})): fails unless both trials finish on this card, each launched its
+   steps x 8 of every kernel, param_seed 0's first loss is the main path's
+   within TRAINER_LOSS_RTOL and the two loops overlap in time; prints each
+   trial's framework and raw tokens/s beside the trainer phase's raw rate
+   alone and its seconds from fit() to its last step. (b) PBT of the
+   flagship at full width: a function trainable (pbt_trainable) trains
+   chunks of 8 steps on the fixed batch with AdamW at its trial's lr and
+   every second iteration writes a directory checkpoint (the parameters and
+   AdamW's state through torch.save, every tensor's bit checksums and a
+   forward's loss in its metadata); population 4 (lr ~ loguniform(1e-4,
+   3e-3), searcher seed 1), resources_per_trial {"CPU": 1, "GPU": 0.5} and
+   max_concurrent_trials 2 (two trials at a time; an exploited trial
+   restarts in its own half), PopulationBasedTraining(perturbation_interval=2,
+   quantile_fraction=0.25, seed 0), stop at iteration 6; checkpoints no
+   trial holds are deleted as the sweep goes. Fails unless an exploit
+   happens, after each the restored tensors' checksums equal the donor's and
+   the first forward loss equals the donor's within TRAINER_LOSS_RTOL,
+   every loss is finite, the best trial's last loss is below its first, and
+   each trial process's launches, read from its last result (the one that
+   meets the stop included), equal its steps x 8 (flash_fwd: 8 more for
+   each forward outside a step, a checkpoint's or the restore's) with its
+   steps its results x 8; prints the sweep's seconds, each trial's tokens/s and peak memory, the
+   exploits, a checkpoint's bytes and save and load seconds, each restart's
+   seconds (exploit to the restarted trial's first result) and the
+   controller's host ms a result. (c) Tuner(PPO) on CartPole-v1 at
+   tests/test_rllib.py's test_ppo_under_tune config (an lr grid of 2, 2
+   iterations, 1 rollout worker x 2 envs) with each trial's learner actor
+   holding half the card: 2 results, a best result, both learners on cuda.
+   No worker outlives shutdown(). A "tune: {...}" line; the kernels line's
+   rows get "tune_launches" (the trials' launches through each process's
+   last result: the bf16 rows at the main path's shape carry them, the other
+   rows 0; the chunk an exploited trial's process runs ahead of the
+   controller is killed part-way and no result counts it).
+
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 1 and prints neither.
 Phases run in the order 1-6, 8, 9, 7 (the trainer runs in one cluster), 10,
-11, 12, 13, 14, 15.
+11, 12, 13, 14, 15, 16.
 """
 
 from __future__ import annotations
@@ -557,6 +597,17 @@ RLLIB_EXTERNAL = dict(clients=2, episodes=10, updates=32, cli_timeout=300)
 # kernel names also carry "xmma").
 RLLIB_PROFILE_GROUPS = (("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
                         ("host-to-device copy", ("Memcpy HtoD",))) + PROFILE_GROUPS
+
+# The tune phase (16): the cluster's CPUs (two trial actors, and in (c) each
+# trial's rollout worker and learner actor beside them, with room to spare
+# so no trial waits on another's CPUs); (b)'s PBT sweep: a population of 4 at
+# lr ~ loguniform(1e-4, 3e-3), drawn by the searcher's seed 1 (1.6e-4,
+# 1.8e-3, 1.3e-3, 2.4e-4: the first two trials on the card at once part
+# widely, so the worse one is in the bottom quantile when the better holds
+# a checkpoint), 6 iterations of 8 steps, PBT's own seed 0; (c) 2 PPO
+# iterations (tests/test_rllib.py's test_ppo_under_tune).
+TUNE = dict(num_cpus=8, population=4, lr_range=(1e-4, 3e-3), searcher_seed=1, pbt_seed=0, iters=6, chunk=8,
+            ppo_iters=2)
 
 
 def _phase(name):
@@ -5237,6 +5288,489 @@ def rllib_phase(torch, card, device="cuda", sizes=None):
     return counts, rows, family_counts
 
 
+def pbt_trainable(config):
+    """PBT's trial body in the tune phase (b), a Tune function trainable: the
+    flagship (models/transformer.py, weights from ``param_seed``) on
+    ``train.torch.get_device()`` (``config["device"]`` where given: the CPU
+    rehearsal), AdamW at ``config["lr"]``, trained on one fixed batch (seed
+    ``batch_seed``) in chunks of ``chunk`` steps, one reported result a chunk
+    (the last loss, the process's flash launch counts, tokens/s, peak
+    memory). Every second iteration it writes a directory checkpoint under
+    ``ckpt_root``: the parameters and AdamW's state through ``torch.save``,
+    with two bit checksums of every tensor and the loss of a forward at those
+    weights in its metadata. Where ``tune.get_checkpoint()`` returns one at
+    the start, it loads it onto the device, checks every tensor's checksums
+    against the donor's, runs that forward again, and reports both with its
+    first result (``restored``). Each result also carries the steps and the
+    forwards outside a step (checkpoints', the restore's) that this process
+    ran, which its launch counts must match. It returns after iteration
+    ``iters`` (after one chunk where a restore starts it there), so no
+    chunk runs past its last result; only an exploited trial's process is
+    killed in the chunk it runs ahead of the controller, whose launches no
+    result reports."""
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air.checkpoint import Checkpoint
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.train.torch import get_device
+
+    fn_start = time.time()
+    A.reset_launch_counts()
+    device = torch.device(config["device"]) if config.get("device") else get_device()
+    cuda = device.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)  # trials beside each other on the host's cores
+    cfg = tt.TransformerConfig(**config["model"], dtype=getattr(torch, config["dtype"]))
+    params = tt.init_params(cfg, seed=config.get("param_seed", 0), device=device)
+    leaves = tt.param_leaves(params)
+    opt = tt.adamw(params, config["lr"])
+    step = tt.make_train_step(cfg, opt, device=device)
+    g = torch.Generator(device=device).manual_seed(config.get("batch_seed", 1))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (config["batch"], config["seq"] + 1), generator=g,
+                                     device=device)}
+
+    def state_tensors():
+        """The parameters, then each one's AdamW state, in a fixed order."""
+        out = list(leaves)
+        for p in leaves:
+            st = opt.state.get(p, {})
+            out += [st[k] for k in sorted(st) if torch.is_tensor(st[k])]
+        return out
+
+    counted = {"steps": 0, "forwards": 0}
+
+    def forward_loss():
+        counted["forwards"] += 1
+        with torch.no_grad():
+            return float(tt.loss_fn(params, batch, cfg))
+
+    it, restored = 0, None
+    ckpt = tune.get_checkpoint()
+    if ckpt is not None:
+        meta = ckpt.metadata
+        t0 = time.perf_counter()
+        state = torch.load(os.path.join(meta["dir"], "state.pt"), map_location=device, weights_only=True)
+        with torch.no_grad():
+            for p, w in zip(leaves, state["params"]):
+                p.copy_(w)
+        opt.load_state_dict(state["opt"])
+        for group in opt.param_groups:
+            group["lr"] = config["lr"]  # the explored learning rate
+        if cuda:
+            torch.cuda.synchronize(device)
+        load_s = time.perf_counter() - t0
+        del state
+        sums = [_bits_checksum(torch, t) for t in state_tensors()]
+        loss = forward_loss()
+        it = int(meta["iteration"])
+        restored = {"donor_dir": meta["dir"], "bit_equal": sums == meta["sums"], "tensors": len(sums),
+                    "loss": loss, "donor_loss": meta["loss"], "load_s": load_s, "lr": config["lr"],
+                    "fn_start": fn_start}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    tokens = config["batch"] * config["seq"] * config["chunk"]
+    while it < config["iters"] or restored is not None:  # a restore is reported, whatever its iteration
+        t0 = time.perf_counter()
+        for _ in range(config["chunk"]):
+            loss = step(params, batch)
+        loss = loss.item()
+        counted["steps"] += config["chunk"]
+        chunk_s = time.perf_counter() - t0
+        it += 1
+        metrics = {"loss": loss, "iteration": it, "pid": os.getpid(),
+                   "tokens_per_sec": tokens / chunk_s, "chunk_s": chunk_s, "lr": config["lr"],
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else 0,
+                   "device_name": torch.cuda.get_device_name(device) if cuda else "cpu"}
+        if restored is not None:
+            metrics["restored"], restored = restored, None
+        ckpt = None
+        if it % 2 == 0:
+            t0 = time.perf_counter()
+            path = os.path.join(config["ckpt_root"], f"ckpt_{os.getpid()}_{it}")
+            os.makedirs(path)
+            sums = [_bits_checksum(torch, t) for t in state_tensors()]
+            torch.save({"params": leaves, "opt": opt.state_dict()}, os.path.join(path, "state.pt"))
+            ckpt = Checkpoint.from_directory(path)
+            ckpt.metadata.update(dir=path, iteration=it, sums=sums, loss=forward_loss())
+            metrics.update(save_s=time.perf_counter() - t0, ckpt_iteration=it,
+                           ckpt_bytes=os.path.getsize(os.path.join(path, "state.pt")))
+        metrics.update(launches=A.launch_counts(), steps=counted["steps"], forwards=counted["forwards"])
+        tune.report(metrics, checkpoint=ckpt)
+
+
+def _observed_pbt_class():
+    """PopulationBasedTraining that records, in the driver, every result it
+    decides on, each exploit (donor, checkpoint metadata, the two learning
+    rates, the time) and each restart (exploit to the restarted trial's first
+    result), and deletes the trials' checkpoint directories that no trial
+    holds any more (each writer's newest stays: its save may be in flight)."""
+    from ray_tpu_torch.tune.schedulers.pbt import EXPLOIT, PopulationBasedTraining
+
+    class ObservedPBT(PopulationBasedTraining):
+        def __init__(self, *args, ckpt_root, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.ckpt_root = ckpt_root
+            self.results, self.exploits, self.restarts, self.pruned = [], [], [], 0
+            self._exploited_at: dict = {}
+
+        def _record(self, trial, result):
+            now = time.time()
+            self.results.append((trial.trial_id, dict(result)))
+            if trial.trial_id in self._exploited_at:
+                at = self._exploited_at.pop(trial.trial_id)
+                # (exploit to the first result, exploit to the restored function's start)
+                start = (result.get("restored") or {}).get("fn_start", now)
+                self.restarts.append((trial.trial_id, (now - at, start - at), dict(result)))
+            return now
+
+        def on_trial_complete(self, controller, trial, result):
+            # The result that meets the stop goes here, not to on_trial_result.
+            self._record(trial, result)
+            super().on_trial_complete(controller, trial, result)
+            self._prune(controller)
+
+        def on_trial_result(self, controller, trial, result):
+            now = self._record(trial, result)
+            decision = super().on_trial_result(controller, trial, result)
+            if decision == EXPLOIT:
+                donor, new_config = self.pending_exploit[trial.trial_id]
+                self.exploits.append({"trial": trial.trial_id, "donor": donor.trial_id,
+                                      "iteration": result.get("training_iteration"),
+                                      "donor_meta": {k: donor.checkpoint.metadata[k] for k in ("dir", "iteration",
+                                                                                             "loss", "sums")},
+                                      "lr_from": trial.config["lr"], "lr_to": new_config["lr"]})
+                self._exploited_at[trial.trial_id] = now
+            self._prune(controller)
+            return decision
+
+        def _prune(self, controller):
+            held = {t.checkpoint.metadata.get("dir") for t in controller.trials if t.checkpoint is not None}
+            written = {}
+            for name in os.listdir(self.ckpt_root):
+                _, pid, it = name.split("_")
+                written.setdefault(pid, []).append((int(it), name))
+            for versions in written.values():
+                for _, name in sorted(versions)[:-1]:
+                    path = os.path.join(self.ckpt_root, name)
+                    if path not in held:
+                        shutil.rmtree(path, ignore_errors=True)
+                        self.pruned += 1
+
+    return ObservedPBT
+
+
+def _learner_devices_callbacks():
+    """RLlib callbacks that add each learner's device, process and card to
+    every training result (the tune phase (c) reads them from the trials)."""
+    from ray_tpu_torch.rllib.callbacks import DefaultCallbacks
+
+    class LearnerDevices(DefaultCallbacks):
+        def on_train_result(self, *, algorithm, result):
+            result["learner_devices"] = algorithm.learner_group.device_info()
+
+    return LearnerDevices
+
+
+@contextlib.contextmanager
+def _controller_host_time(totals: dict):
+    """Adds the seconds the Tune controller spends handling results
+    (``_on_result``: the scheduler, the loggers, the next task) and saving the
+    experiment's state (with each new checkpoint's copy) to ``totals``."""
+    from ray_tpu_torch.tune.execution.tune_controller import TuneController
+
+    originals = {name: getattr(TuneController, name) for name in ("_on_result", "save_experiment_state")}
+
+    def timed(name, fn):
+        def wrapper(self, *args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                totals[name] = totals.get(name, 0.0) + time.perf_counter() - t
+                totals[name + "_calls"] = totals.get(name + "_calls", 0) + 1
+        return wrapper
+
+    for name, fn in originals.items():
+        setattr(TuneController, name, timed(name, fn))
+    try:
+        yield totals
+    finally:
+        for name, fn in originals.items():
+            setattr(TuneController, name, fn)
+
+
+def tune_phase(torch, card, main_first_loss, trainer_raw_ms, device="cuda", model=None, sizes=None):
+    """Tune on the card (phase 16), in a cluster of its own: (a) Tuner over
+    TorchTrainer, two trials sharing the card; (b) PBT of the flagship at full
+    width with directory checkpoints; (c) Tuner over PPO with each trial's
+    learner on the card. Returns the flash launches the trials made, per
+    kernel."""
+    _phase("tune")
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air.config import RunConfig, ScalingConfig
+    from ray_tpu_torch.rllib import PPO
+    from ray_tpu_torch.train.flagship_loop import train_loop
+    from ray_tpu_torch.train.torch import TorchTrainer
+    from ray_tpu_torch.tune.search import BasicVariantGenerator
+
+    cuda = device == "cuda"
+    z = dict(TUNE, **(sizes or {}))
+    model = model or dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=8, n_kv_heads=8, d_ff=2816,
+                          max_seq_len=1024, remat=False, fused_loss=False, scan_unroll=8)
+    L = model["n_layers"]
+    batch, seq, dtype = z.get("batch", MAIN["B"]), z.get("seq", MAIN["T"]), z.get("dtype", "bfloat16")
+    failures, marks, res = [], {}, {"card": card}
+    counts = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    rt.init(num_cpus=z["num_cpus"], num_gpus=1, object_store_memory=1 << 30)
+    pids = set()
+
+    def note_workers():
+        pids.update(w.pid for w in rt._global_node.raylet.workers.values() if w.pid)
+
+    try:
+        marks["init_s"] = time.perf_counter() - t0
+        # ---- (a) Tuner(TorchTrainer): two trials share the card ----
+        t = time.perf_counter()
+        config = dict(model=model, dtype=dtype, batch=batch, seq=seq, param_seed=0, batch_seed=1,
+                      **TRAINER_MOE)
+        trainer = TorchTrainer(
+            train_loop, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=cuda,
+                                         resources_per_worker={"GPU": 0.5} if cuda else None),
+            run_config=RunConfig(storage_path=os.path.join(storage, "trainer")))
+        grid = tune.Tuner(trainer, param_space={"train_loop_config": {"param_seed": tune.grid_search([0, 1])}},
+                          tune_config=tune.TuneConfig(metric="loss", mode="min")).fit()
+        fit_done = time.time()
+        note_workers()
+        marks["trainer_s"] = time.perf_counter() - t
+        fit_start = fit_done - marks["trainer_s"]
+        steps_per = config["warmup"] + 2 * config["rounds"] * config["chunk"] + config["profile_steps"]
+        rows = sorted(((r.config["train_loop_config"]["param_seed"], r) for r in grid), key=lambda x: x[0])
+        res["trainer"] = []
+        for seed, r in rows:
+            m = r.metrics
+            pids.add(m.get("pid"))
+            for n in KERNELS:
+                counts[n] += m.get("launches", {}).get(n, 0)
+            rec = {"param_seed": seed, "error": r.error, "device_name": m.get("device_name"),
+                   "launches": m.get("launches"), "steps": m.get("steps"), "first_loss": m.get("first_loss"),
+                   "tokens_per_sec_framework": m.get("tokens_per_sec_framework"),
+                   "tokens_per_sec_raw": m.get("tokens_per_sec_raw"),
+                   "fit_to_result_s": m.get("end_time", fit_done) - fit_start,
+                   "interval": [m.get("start_time"), m.get("end_time")]}
+            res["trainer"].append(rec)
+            print(f"tune trainer, param_seed {seed}: {'error ' + r.error if r.error else 'done'}; worker pid "
+                  f"{m.get('pid')} on {m.get('device_name')}; {m.get('steps')} steps, launches {m.get('launches')}; "
+                  f"first loss {m.get('first_loss')}; framework {m.get('tokens_per_sec_framework') or 0:.0f} "
+                  f"tokens/s, raw {m.get('tokens_per_sec_raw') or 0:.0f} tokens/s, sharing the card (the trainer "
+                  f"phase alone: raw {batch * seq / trainer_raw_ms * 1e3 if trainer_raw_ms else float('nan'):.0f} "
+                  f"tokens/s); fit() to its last step {rec['fit_to_result_s']:.2f} s")
+            if r.error or not m.get("launches"):
+                failures.append(f"(a) the param_seed {seed} trial did not finish: {r.error}")
+                continue
+            if cuda and m["device_name"] != torch.cuda.get_device_name(0):
+                failures.append(f"(a) trial {seed} ran on {m['device_name']!r}")
+            want = {n: m["steps"] * L for n in KERNELS} if cuda else dict.fromkeys(KERNELS, 0)
+            if m["steps"] != steps_per or m["launches"] != want:
+                failures.append(f"(a) trial {seed}: {m['steps']} steps launched {m['launches']}, not {L} a step")
+        ok = [rec for rec in res["trainer"] if not rec["error"] and rec["interval"][0]]
+        if len(ok) == 2:
+            (s0, e0), (s1, e1) = ok[0]["interval"], ok[1]["interval"]
+            overlap = min(e0, e1) - max(s0, s1)
+            res["trainer_overlap_s"] = overlap
+            print(f"tune trainer: the two trials' loops (the flagship's set-up on the card to its last step) "
+                  f"overlap by {overlap:.2f} s ({e0 - s0:.2f} s and {e1 - s1:.2f} s long)")
+            if overlap <= 0:
+                failures.append(f"(a) the two trials' loops do not overlap in time ({overlap:.2f} s)")
+            rel = abs(ok[0]["first_loss"] - main_first_loss) / abs(main_first_loss)
+            print(f"tune trainer: param_seed 0's first loss {ok[0]['first_loss']:.6f}, the main path's (the "
+                  f"trainer phase's worker is held to it too) {main_first_loss:.6f} (relative difference "
+                  f"{rel:.2e}, bar {TRAINER_LOSS_RTOL})")
+            if not rel <= TRAINER_LOSS_RTOL:
+                failures.append(f"(a) param_seed 0's first loss {ok[0]['first_loss']} is not {main_first_loss}")
+        else:
+            failures.append(f"(a) {len(ok)} of 2 trials finished")
+
+        # ---- (b) PBT of the flagship at full width ----
+        t = time.perf_counter()
+        ckpt_root = os.path.join(storage, "pbt_ckpts")
+        os.makedirs(ckpt_root)
+        from ray_tpu_torch.models import transformer as tt
+
+        shapes = tt._param_shapes(tt.TransformerConfig(**model))
+        n_params = sum(int(np.prod(s)) for s in [*shapes["layers"].values()] + [
+            v for k, v in shapes.items() if k != "layers"])
+        ckpt_bytes = 3 * 4 * n_params
+        # Each trial holds one checkpoint and may be writing the next; the
+        # controller keeps a copy of each trial's newest in the experiment.
+        need = (2 + 1) * z["population"] * ckpt_bytes
+        free = shutil.disk_usage(storage).free
+        print(f"pbt: {n_params / 1e6:.1f}M parameters, ~{ckpt_bytes / 1e9:.2f} GB a checkpoint; free disk under "
+              f"{storage}: {free / 1e9:.1f} GB (the sweep needs up to {need / 1e9:.1f} GB)")
+        if free < need:
+            raise AssertionError(f"tune: {free / 1e9:.1f} GB free, the PBT sweep needs {need / 1e9:.1f} GB")
+        pbt = _observed_pbt_class()(
+            perturbation_interval=2, quantile_fraction=0.25, seed=z["pbt_seed"], ckpt_root=ckpt_root,
+            hyperparam_mutations={"lr": tune.loguniform(*z["lr_range"])})
+        host = {}
+        with _controller_host_time(host):
+            t_sweep = time.perf_counter()
+            sweep_grid = tune.run(
+                pbt_trainable,
+                config=dict(model=model, dtype=dtype, batch=batch, seq=seq, chunk=z["chunk"], iters=z["iters"],
+                            param_seed=0, batch_seed=1, ckpt_root=ckpt_root, lr=tune.loguniform(*z["lr_range"]),
+                            **({} if cuda else {"device": "cpu"})),
+                metric="loss", mode="min", num_samples=z["population"], scheduler=pbt,
+                search_alg=BasicVariantGenerator(num_samples=z["population"], seed=z["searcher_seed"]),
+                stop={"training_iteration": z["iters"]}, storage_path=storage, name="pbt",
+                resources_per_trial={"CPU": 1, "GPU": 0.5} if cuda else {"CPU": 1},
+                # As many live trials as the card holds: an exploited trial's
+                # restart takes its own freed half back, where a waiting
+                # trial would otherwise take it first.
+                max_concurrent_trials=2)
+            sweep_s = time.perf_counter() - t_sweep
+        note_workers()
+        marks["pbt_s"] = time.perf_counter() - t
+        # Each trial process's last result: its launches, steps and forwards
+        # outside a step so far, and how many results it gave.
+        per_pid = {}
+        for tid, r in pbt.results:
+            pids.add(r["pid"])
+            n = per_pid.get(r["pid"], (None, 0))[1]
+            per_pid[r["pid"]] = (r, n + 1)
+        for pid, (r, n) in sorted(per_pid.items()):
+            for k in KERNELS:
+                counts[k] += r["launches"].get(k, 0)
+            want = {k: (r["steps"] + (r["forwards"] if k == "flash_fwd" else 0)) * L if cuda else 0
+                    for k in KERNELS}
+            print(f"pbt process {pid}: {n} results, {r['steps']} steps and {r['forwards']} forwards outside a "
+                  f"step, launches {r['launches']} ({L} a step, and {L} a forward for flash_fwd)")
+            if r["steps"] != n * z["chunk"] or r["launches"] != want:
+                failures.append(f"(b) pid {pid}: {n} results of {z['chunk']} steps, but {r['steps']} steps and "
+                                f"{r['forwards']} forwards counted, launches {r['launches']}, not {want}")
+        by_trial = {}
+        for tid, r in pbt.results:
+            by_trial.setdefault(tid, []).append(r)
+        losses = [r["loss"] for _, r in pbt.results]
+        errors = [r.error for r in sweep_grid if r.error]
+        n_results = len(pbt.results)
+        host_ms = (host.get("_on_result", 0.0) + host.get("save_experiment_state", 0.0)) / max(
+            1, host.get("_on_result_calls", 0)) * 1e3
+        # The controller hands the scheduler each trial's results merged: a
+        # key stays until a later result writes it again.
+        saves = [r for _, r in pbt.results if r.get("ckpt_iteration") == r["iteration"]]
+        restarts = [(tid, s, r.get("restored")) for tid, s, r in pbt.restarts]
+        print(f"pbt: population {z['population']}, lr ~ loguniform{z['lr_range']} (searcher seed "
+              f"{z['searcher_seed']}), perturbation every 2 iterations of {z['chunk']} steps, quantile 0.25, seed "
+              f"{z['pbt_seed']}, stop at iteration {z['iters']}: {n_results} results in {sweep_s:.1f} s; "
+              f"{len(pbt.exploits)} exploit(s); {pbt.pruned} checkpoint(s) deleted as no trial held them; errors "
+              f"{errors}")
+        for tid in sorted(by_trial):
+            rs = by_trial[tid]
+            print(f"pbt {tid}: lr {[round(r['lr'], 6) for r in rs]}; losses {[round(r['loss'], 4) for r in rs]}; "
+                  f"tokens/s {[round(r['tokens_per_sec']) for r in rs]}; peak memory "
+                  f"{max(r['peak_memory_bytes'] for r in rs) / 2**30:.2f} GiB; pids {sorted({r['pid'] for r in rs})}")
+        for e in pbt.exploits:
+            print(f"pbt exploit: {e['trial']} at iteration {e['iteration']} takes {e['donor']}'s checkpoint of "
+                  f"iteration {e['donor_meta']['iteration']} (loss {e['donor_meta']['loss']:.6f}), lr "
+                  f"{e['lr_from']:.6g} -> {e['lr_to']:.6g}")
+        for tid, (s, s_start), rst in restarts:
+            print(f"pbt restart: {tid}'s first result {s:.2f} s after the exploit ({s_start:.2f} s to the restored "
+                  f"function's start: waiting for a share of the card, the new process, its imports; then the model, "
+                  f"the load and one chunk); restored {rst and rst['tensors']} tensors bit-equal to the donor's "
+                  f"checksums: {rst and rst['bit_equal']}; forward loss {rst and rst['loss']} against the donor's "
+                  f"{rst and rst['donor_loss']}; load {rst and rst['load_s']:.2f} s")
+        if saves:
+            print(f"pbt checkpoints: {len(saves)} written, {saves[0]['ckpt_bytes']} bytes each; save (checksums, "
+                  f"torch.save, the forward) {min(r['save_s'] for r in saves):.2f}-{max(r['save_s'] for r in saves):.2f} s")
+        print(f"pbt controller: {host.get('_on_result', 0.0) * 1e3:.1f} ms handling {host.get('_on_result_calls', 0)} "
+              f"results, {host.get('save_experiment_state', 0.0) * 1e3:.1f} ms saving the experiment's state "
+              f"({host.get('save_experiment_state_calls', 0)} saves, each new checkpoint copied): {host_ms:.1f} ms a "
+              f"result")
+        if errors:
+            failures.append(f"(b) trials failed: {errors}")
+        if not pbt.exploits:
+            failures.append("(b) no exploit happened")
+        if len(restarts) != len(pbt.exploits):
+            failures.append(f"(b) {len(pbt.exploits)} exploits but {len(restarts)} restarted trials reported")
+        for (tid, s, rst), e in zip(restarts, pbt.exploits):
+            if not rst or rst["donor_dir"] != e["donor_meta"]["dir"] or not rst["bit_equal"]:
+                failures.append(f"(b) {tid}'s restored tensors differ from the donor's checksums")
+            elif not abs(rst["loss"] - rst["donor_loss"]) <= TRAINER_LOSS_RTOL * abs(rst["donor_loss"]):
+                failures.append(f"(b) {tid}'s forward after the restore {rst['loss']} is not the donor's "
+                                f"{rst['donor_loss']}")
+        if not losses or not all(math.isfinite(x) for x in losses):
+            failures.append("(b) a loss is not finite")
+        best = min(by_trial.values(), key=lambda rs: rs[-1]["loss"]) if by_trial else None
+        if best is None or not best[-1]["loss"] < best[0]["loss"]:
+            failures.append("(b) the best trial's last loss is not below its first")
+        if cuda and any(r["device_name"] != torch.cuda.get_device_name(0) for _, r in pbt.results):
+            failures.append("(b) a trial trained off this card")
+        res["pbt"] = {"sweep_s": sweep_s, "results": n_results, "exploits": pbt.exploits and [
+            {k: v for k, v in e.items() if k != "donor_meta"} for e in pbt.exploits],
+            "restart_s": [s for _, (s, _), _ in restarts], "restart_to_fn_start_s": [s for _, (_, s), _ in restarts],
+            "load_s": [rst["load_s"] for _, _, rst in restarts if rst],
+            "save_s": [r["save_s"] for r in saves], "ckpt_bytes": saves[0]["ckpt_bytes"] if saves else None,
+            "tokens_per_sec": {tid: [r["tokens_per_sec"] for r in rs] for tid, rs in by_trial.items()},
+            "peak_memory_gib": {tid: max(r["peak_memory_bytes"] for r in rs) / 2**30 for tid, rs in by_trial.items()},
+            "controller_ms_per_result": host_ms, "pruned": pbt.pruned,
+            "processes": {pid: {"results": n, "steps": r["steps"], "forwards": r["forwards"]}
+                          for pid, (r, n) in per_pid.items()}}
+
+        # ---- (c) Tuner(PPO): each trial's learner on the card ----
+        t = time.perf_counter()
+        ppo = tune.Tuner(
+            PPO,
+            param_space={"env": "CartPole-v1", "num_rollout_workers": 1, "num_envs_per_worker": 2,
+                         "train_batch_size": 256, "sgd_minibatch_size": 64, "num_sgd_iter": 2,
+                         "lr": tune.grid_search([3e-4, 1e-3]), "num_learners": 1,
+                         "num_gpus_per_learner": 0.5 if cuda else 0, "device": device,
+                         "callbacks_class": _learner_devices_callbacks()},
+            tune_config=tune.TuneConfig(metric="episode_reward_mean", mode="max"),
+            run_config=RunConfig(name="ppo", storage_path=storage, stop={"training_iteration": z["ppo_iters"]}),
+        ).fit()
+        note_workers()
+        marks["ppo_s"] = time.perf_counter() - t
+        best = ppo.get_best_result()
+        learners = [d for r in ppo for d in r.metrics.get("learner_devices", [])]
+        pids.update(d["pid"] for d in learners)
+        print(f"tune ppo: {len(ppo)} results in {marks['ppo_s']:.1f} s, errors {ppo.errors}; best lr "
+              f"{best.config.get('lr') if best else None} (episode_reward_mean "
+              f"{best.metrics.get('episode_reward_mean') if best else None}); learners {learners}")
+        if len(ppo) != 2 or ppo.errors:
+            failures.append(f"(c) {len(ppo)} results, errors {ppo.errors}")
+        if best is None:
+            failures.append("(c) no best result")
+        want_dev = "cuda" if cuda else "cpu"
+        if len(learners) != 2 or any(torch.device(d["device"]).type != want_dev for d in learners):
+            failures.append(f"(c) the learners ran on {learners}, not {want_dev}")
+        res["ppo"] = {"s": marks["ppo_s"], "learners": learners}
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    pids.discard(None)
+    pids.discard(os.getpid())
+    deadline = time.monotonic() + 30
+    while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = sorted(p for p in pids if _alive(p))
+    print(f"tune: worker pids {sorted(pids)}, {len(left)} left after shutdown()")
+    if left:
+        failures.append(f"worker processes {left} outlived shutdown()")
+    marks["phase_s"] = time.perf_counter() - t0
+    res.update(sections_s=marks, launches=counts)
+    print(f"tune: phase wall time {marks['phase_s']:.1f} s")
+    print("tune: " + json.dumps(res, default=str))
+    if failures:
+        raise AssertionError("tune: " + "; ".join(failures))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -5287,6 +5821,11 @@ def main() -> int:
                    regs=i["regs"], smem_bytes=i["smem_bytes"], blocks_per_sm=i["blocks_per_sm"],
                    local_bytes=i["local_bytes"])
     kernels += dt_rows
+    tune_counts = tune_phase(torch, smi, first_loss, trainer_raw_ms)
+    # The trials run the bf16 kernels at the main path's shape: their rows
+    # carry the count, the other shapes' and the f32 rows' 0.
+    for row in kernels:
+        row["tune_launches"] = tune_counts.get(row["name"], 0)
     print(f"script wall time {time.perf_counter() - t0:.1f} s (from the device phase; imports before it)")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -29,8 +29,10 @@ Model:
   resource acquisition once its last user is gone — guaranteed even when
   the actor died mid-start or mid-task.
 - ``next(timeout)`` drives everything: starts due/pending actors, waits on
-  in-flight task futures, dispatches callbacks. Callbacks run on the caller
-  thread and may reentrantly call manager methods (remove/add/schedule).
+  in-flight task futures and on a no-op call to each starting actor (so an
+  actor coming up wakes it as a result does), dispatches callbacks.
+  Callbacks run on the caller thread and may reentrantly call manager
+  methods (remove/add/schedule).
 """
 
 from __future__ import annotations
@@ -164,6 +166,9 @@ class ActorManager:
         # resource refcounting: request instance -> (AcquiredResources, users)
         self._acquisitions: dict[int, list] = {}  # id(request) -> [acq, set(tracked)]
         self._inflight: dict[Any, TrackedActorTask] = {}  # ObjectRef -> task
+        # ObjectRef -> (tracked, actor_id): a no-op call on each STARTING
+        # actor, so next() wakes when one comes up (or dies starting).
+        self._ready_probes: dict[Any, tuple[TrackedActor, str]] = {}
         self._last_state_poll = 0.0
 
     # -- introspection -----------------------------------------------------
@@ -287,6 +292,7 @@ class ActorManager:
                 self.remove_actor(tracked)
         self._tracked.clear()
         self._inflight.clear()
+        self._ready_probes.clear()
         self._acquisitions.clear()
         self.resource_manager.clear()
 
@@ -333,6 +339,30 @@ class ActorManager:
         for ref, task in list(self._inflight.items()):
             if task.tracked_actor is tracked:
                 del self._inflight[ref]
+        for ref, (t, _) in list(self._ready_probes.items()):
+            if t is tracked:
+                del self._ready_probes[ref]
+
+    def _probe_ready(self, tracked: TrackedActor) -> None:
+        """Submit a no-op call (``__sizeof__``, which every object has) that
+        returns once the actor is up: calls to an actor still starting wait
+        for it, and fail if it dies starting."""
+        ref = tracked.actor_handle._invoke("__sizeof__", (), {}, 1)
+        self._ready_probes[ref] = (tracked, tracked.actor_id)
+
+    def _on_ready_probe(self, ref, tracked: TrackedActor, actor_id: str) -> bool:
+        import ray_tpu_torch
+
+        try:
+            ray_tpu_torch.get(ref)
+        except Exception:  # noqa: BLE001 — the actor's state, read next, says why
+            pass
+        if tracked.state != STARTING or tracked.actor_id != actor_id:
+            return False  # already seen up, or replaced
+        if self._poll_starting(tracked):
+            return True
+        self._probe_ready(tracked)  # the call gave up before the start did
+        return False
 
     # -- event loop --------------------------------------------------------
 
@@ -343,23 +373,31 @@ class ActorManager:
         import ray_tpu_torch
 
         progressed = self._start_phase()
-
-        refs = list(self._inflight.keys())
-        if not refs:
-            if not progressed and self._has_unstarted():
-                # Nothing in flight and actors still coming up: yield briefly
-                # instead of a hot spin in caller loops.
-                time.sleep(min(0.05, timeout or 0.05))
-                progressed = self._start_phase() or progressed
+        if self._inflight:
+            wait_s = 0 if progressed else timeout
+        elif progressed or not self._has_unstarted():
             return progressed
-        ready, _ = ray_tpu_torch.wait(
-            refs, num_returns=1, timeout=0 if progressed else timeout
-        )
+        else:
+            # Nothing in flight and actors still coming up: wait briefly on
+            # their probes (an actor waiting for resources has none) instead
+            # of a hot spin in caller loops.
+            wait_s = min(0.05, timeout or 0.05)
+        refs = [*self._inflight, *self._ready_probes]
+        if not refs:
+            time.sleep(wait_s)
+            return self._start_phase()
+        ready, _ = ray_tpu_torch.wait(refs, num_returns=1, timeout=wait_s)
         # Grab every already-finished future in one sweep (cheap second wait).
         if ready:
             more, _ = ray_tpu_torch.wait(refs, num_returns=len(refs), timeout=0)
             ready = more or ready
+        elif not self._inflight:
+            progressed = self._start_phase()
         for ref in ready:
+            probe = self._ready_probes.pop(ref, None)
+            if probe is not None:
+                progressed = self._on_ready_probe(ref, *probe) or progressed
+                continue
             task = self._inflight.pop(ref, None)
             if task is None:
                 continue  # cancelled while we were waiting
@@ -410,8 +448,6 @@ class ActorManager:
                 tracked.state = PENDING
             if tracked.state == PENDING:
                 progressed = self._try_create(tracked) or progressed
-            if tracked.state == STARTING:
-                progressed = self._poll_starting(tracked) or progressed
         # Periodic liveness poll for idle ALIVE actors: an actor with no
         # in-flight task has no error channel, so its death would otherwise
         # go unnoticed until the next task.
@@ -477,6 +513,7 @@ class ActorManager:
             )
             tracked.actor_id = tracked.actor_handle.actor_id
             tracked.state = STARTING
+            self._probe_ready(tracked)
         except Exception as e:  # noqa: BLE001 — creation failure is actor failure
             self._handle_actor_failure(tracked, e)
         return True

@@ -1,8 +1,8 @@
 """BaseTrainer + Result.
 
 Analog of the reference's BaseTrainer (python/ray/train/base_trainer.py:559
-fit-via-Tune): ``fit()`` runs the trainer directly; the 1-trial Tune path
-waits for Tune (ROADMAP A5, what remains).
+fit-via-Tune): ``fit()`` runs the trainer directly; ``tune.Tuner(trainer)``
+runs it as a trial through ``as_trainable``.
 """
 
 from __future__ import annotations
@@ -54,8 +54,22 @@ class BaseTrainer:
         raise NotImplementedError
 
     def as_trainable(self):
-        """Tune is not ported (ROADMAP A5, what remains)."""
-        raise NotImplementedError("Tune is not ported (ROADMAP A5, what remains)")
+        """Adapter so tune.Tuner can run this trainer as a trial
+        (reference: base_trainer.py as_trainable)."""
+        trainer = self
+
+        def _train_fn(config):
+            from ray_tpu_torch.tune import report as tune_report
+
+            merged = trainer._with_config_overrides(config)
+            result = merged._fit_direct()
+            if result.error:
+                # A failed fit must fail the trial, not complete it with
+                # empty metrics.
+                raise RuntimeError(f"trainer fit failed: {result.error}")
+            tune_report(result.metrics, checkpoint=result.checkpoint)
+
+        return _train_fn
 
     def _with_config_overrides(self, config: dict) -> "BaseTrainer":
         if not config:

@@ -13,8 +13,9 @@ carries the totals::
     tokens_per_sec_framework, tokens_per_sec_raw, ratio (raw time over
     framework time; BASELINE.md's target is >= 0.90), device_name,
     launches (the flash kernels' launch counts in this worker over the loop),
-    steps, first_loss, start_time and first_report_time (time.time() as the
-    loop starts and at its first report), peak_memory_bytes (CUDA only),
+    steps, first_loss, start_time, first_report_time and end_time
+    (time.time() as the loop starts, at its first report and as the last
+    step's work is done), peak_memory_bytes (CUDA only),
     n_params, pid (the worker's process id), and device_us: after the
     rounds, ``profile_steps`` more steps run under ``torch.profiler``, and
     this maps each device operation's name to its device microseconds over
@@ -119,6 +120,7 @@ def train_loop(config: dict) -> None:
         "steps": warmup + 2 * rounds * chunk + profile_steps,
         "n_params": n_params,
         "start_time": start_time,
+        "end_time": time.time(),
         "pid": os.getpid(),
         "device_us": device_us,
     }

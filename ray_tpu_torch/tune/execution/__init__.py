@@ -1,0 +1,1 @@
+from ray_tpu_torch.tune.execution.tune_controller import TuneController  # noqa: F401

@@ -49,7 +49,10 @@ def test_import_pulls_in_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.rllib.algorithms.leela_chess_zero.leela_chess_zero, "
         "ray_tpu_torch.rllib.algorithms.alpha_star.alpha_star, ray_tpu_torch.rllib.env.board_env, "
         "ray_tpu_torch.rllib.env.two_player, ray_tpu_torch.rllib.env.external_env, "
-        "ray_tpu_torch.rllib.env.policy_server, ray_tpu_torch.rllib.train\n"
+        "ray_tpu_torch.rllib.env.policy_server, ray_tpu_torch.rllib.train, ray_tpu_torch.tune.tuner, "
+        "ray_tpu_torch.tune.execution.tune_controller, ray_tpu_torch.tune.search, ray_tpu_torch.tune.schedulers, "
+        "ray_tpu_torch.tune.search._gp, ray_tpu_torch.tune.analysis, ray_tpu_torch.tune.logger, "
+        "ray_tpu_torch.tune.syncer\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
     )
@@ -109,7 +112,15 @@ def test_no_source_imports_jax_or_ray_tpu():
                    "rllib/algorithms/dreamerv3/dreamerv3.py", "rllib/algorithms/alpha_zero/alpha_zero.py",
                    "rllib/algorithms/leela_chess_zero/leela_chess_zero.py", "rllib/algorithms/alpha_star/alpha_star.py",
                    "rllib/env/board_env.py", "rllib/env/two_player.py", "rllib/env/external_env.py",
-                   "rllib/env/policy_server.py", "rllib/train.py", "rllib/__main__.py"):
+                   "rllib/env/policy_server.py", "rllib/train.py", "rllib/__main__.py", "tune/sample.py",
+                   "tune/experiment/trial.py", "tune/search/searcher.py", "tune/search/basic_variant.py",
+                   "tune/search/repeater.py", "tune/schedulers/trial_scheduler.py", "tune/schedulers/asha.py",
+                   "tune/schedulers/median_stopping.py", "tune/schedulers/hyperband.py", "tune/schedulers/pbt.py",
+                   "tune/logger.py", "tune/syncer.py", "tune/execution/tune_controller.py", "tune/tune_config.py",
+                   "tune/result_grid.py", "tune/tuner.py", "tune/analysis/experiment_analysis.py",
+                   "tune/search/hyperopt_like.py", "tune/search/gated.py", "tune/search/_gp.py",
+                   "tune/search/bayesopt.py", "tune/search/bohb.py", "tune/schedulers/pb2.py",
+                   "tune/schedulers/resource_changing.py"):
         assert f"ray_tpu_torch/{module}" in names, module
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
@@ -279,6 +290,65 @@ def test_rllib_exports_exactly_the_ported_algorithms():
     assert tenv.PolicyClient.__module__ == "ray_tpu_torch.rllib.env.policy_server"
     assert tenv.PolicyServerInput.__module__ == "ray_tpu_torch.rllib.env.policy_server"
     assert available_algorithms() == sorted(ported + ["BanditLinTS", "BanditLinUCB"])
+
+
+def test_tune_exports_the_references_names_and_needs_no_sklearn_pandas_or_tensorboardx():
+    """ray_tpu_torch.tune, its schedulers and its searchers export what the
+    JAX package's do; every module of tune/ in the JAX package has its
+    counterpart at the same path. The card's machine has no scikit-learn,
+    pandas or tensorboardX: with all three blocked Tune imports, its
+    Gaussian process fits and predicts, the TensorBoard logger is skipped
+    quietly and the dataframe views raise ImportError naming pandas."""
+    import ray_tpu.tune as jtune
+    import ray_tpu_torch.tune as ttune
+    from ray_tpu.tune import schedulers as jsched
+    from ray_tpu.tune import search as jsearch
+    from ray_tpu_torch.tune import schedulers as tsched
+    from ray_tpu_torch.tune import search as tsearch
+
+    for ref, port in ((jtune, ttune), (jsched, tsched), (jsearch, tsearch)):
+        public = lambda m: sorted(n for n in dir(m) if not n.startswith("_") and not isinstance(getattr(m, n), type(m)))
+        assert public(port) == public(ref), port.__name__
+    for name in ("Tuner", "run", "report", "get_checkpoint", "choice", "uniform", "loguniform", "randint",
+                 "grid_search", "sample_from", "TuneConfig", "ResultGrid", "ExperimentAnalysis", "FunctionTrainable"):
+        assert hasattr(ttune, name), name
+    for name in ("ASHAScheduler", "HyperBandScheduler", "MedianStoppingRule", "PopulationBasedTraining", "PB2",
+                 "ResourceChangingScheduler"):
+        assert issubclass(getattr(tsched, name), tsched.TrialScheduler), name
+    for name in ("BasicVariantGenerator", "BayesOptSearch", "TuneBOHB", "HyperOptLikeSearch", "Repeater",
+                 "ConcurrencyLimiter"):
+        assert issubclass(getattr(tsearch, name), tsearch.Searcher), name
+    ref_files = {p.relative_to(ROOT / "ray_tpu" / "tune").as_posix() for p in (ROOT / "ray_tpu" / "tune").rglob("*.py")}
+    for rel in ref_files:
+        assert (ROOT / "ray_tpu_torch" / "tune" / rel).exists(), rel
+    code = (
+        "import sys\n"
+        "for name in ('sklearn', 'pandas', 'tensorboardX'):\n"
+        "    sys.modules[name] = None\n"
+        "import tempfile\n"
+        "import numpy as np\n"
+        "import ray_tpu_torch.tune as tune\n"
+        "from ray_tpu_torch.tune.logger import LoggerManager\n"
+        "from ray_tpu_torch.tune.experiment.trial import Trial\n"
+        "from ray_tpu_torch.tune.search._gp import GaussianProcess\n"
+        "X = np.linspace(0, 1, 6)[:, None]\n"
+        "mu, sd = GaussianProcess(1e-6).fit(X, np.sin(6 * X[:, 0])).predict(X)\n"
+        "assert mu.shape == sd.shape == (6,) and np.all(sd >= 0)\n"
+        "d = tempfile.mkdtemp()\n"
+        "m = LoggerManager(d)\n"
+        "m.on_result(Trial(config={'a': 1}, trial_id='t'), {'score': 1.0})\n"
+        "m.close()\n"
+        "import os\n"
+        "assert sorted(os.listdir(os.path.join(d, 't'))) == ['params.json', 'progress.csv', 'result.json']\n"
+        "try:\n"
+        "    tune.ResultGrid([]).get_dataframe()\n"
+        "except ImportError as e:\n"
+        "    print(e)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "pandas not available"
 
 
 def test_worker_runtime_imports_no_torch():
